@@ -1,0 +1,12 @@
+"""piv_liteflownet_tpu_torch: the PyTorch/CUDA port of piv_liteflownet_tpu.
+
+PIV-LiteFlowNet-en and LiteFlowNet (version 1) eval inference on an NVIDIA
+H100. The model is PyTorch; the cost volume, the feature backwarp and the
+fused rgb warp + occlusion norm are hand-written CUDA kernels
+(``csrc/*.cu``, built with ``nvcc`` at first use, see ``kernels/build.py``).
+Entry points run on the CUDA card unless the caller passes ``device="cpu"``.
+"""
+
+__version__ = "0.1.0"
+
+from piv_liteflownet_tpu_torch.models.factory import hui_liteflownet, piv_liteflownet  # noqa: F401

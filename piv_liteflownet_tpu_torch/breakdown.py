@@ -1,0 +1,120 @@
+"""Where the device time of ``estimate`` goes, from a ``torch.profiler`` trace on the card.
+
+    python -m piv_liteflownet_tpu_torch.breakdown [--size 1024] [--batch 1] [--iters 5]
+
+Runs PIV-LiteFlowNet-en v1 (seeded random weights) on a synthetic particle
+pair with the inputs on the card, traces ``--iters`` calls after a warm-up,
+and prints per call: the device time of each group of CUDA kernels (convs,
+the port's three kernels, elementwise, resize, memory copies, other), the
+device busy time, the span from the first kernel's start to the last
+kernel's end, and the device idle share within that span, followed by the
+top kernels by device time. Needs a CUDA card.
+"""
+
+from __future__ import annotations
+
+import argparse
+import json
+import subprocess
+from collections import defaultdict
+from typing import Iterable, List, Tuple
+
+import torch
+
+GROUPS = (
+    ("corr49", ("corr49_kernel",)),
+    ("backwarp", ("backwarp_kernel",)),
+    ("rgb_warp_norm", ("rgb_warp_norm_kernel",)),
+    ("conv", ("conv", "gemm", "xmma", "cutlass", "cudnn", "implicit", "winograd", "fft", "sm90_")),
+    ("resize", ("upsample",)),
+    ("memcpy/memset", ("memcpy", "memset")),
+    ("elementwise/reduce", ("elementwise", "reduce", "vectorized", "cat", "index", "gather", "copy")),
+)
+
+
+def group_of(kernel_name: str) -> str:
+    low = kernel_name.lower()
+    for group, keys in GROUPS:
+        if any(k in low for k in keys):
+            return group
+    return "other"
+
+
+def busy_and_span(intervals: Iterable[Tuple[float, float]]) -> Tuple[float, float]:
+    """(union length, first start to last end) of ``(start, end)`` intervals."""
+    ivs = sorted(intervals)
+    if not ivs:
+        return 0.0, 0.0
+    busy, cur_s, cur_e = 0.0, ivs[0][0], ivs[0][1]
+    for s, e in ivs[1:]:
+        if s > cur_e:
+            busy += cur_e - cur_s
+            cur_s, cur_e = s, e
+        else:
+            cur_e = max(cur_e, e)
+    busy += cur_e - cur_s
+    return busy, max(e for _, e in ivs) - ivs[0][0]
+
+
+def summarize(kernels: List[Tuple[str, float, float]], calls: int) -> dict:
+    """Per-call device ms by group, busy ms, span ms and idle share from ``(name, start_us, end_us)``."""
+    by_group: dict = defaultdict(float)
+    by_name: dict = defaultdict(lambda: [0.0, 0])
+    for name, s, e in kernels:
+        by_group[group_of(name)] += (e - s) / 1e3 / calls
+        by_name[name][0] += (e - s) / 1e3 / calls
+        by_name[name][1] += 1
+    busy, span = busy_and_span((s, e) for _, s, e in kernels)
+    top = sorted(by_name.items(), key=lambda kv: -kv[1][0])[:12]
+    return {
+        "device_ms_per_call": dict(sorted(by_group.items(), key=lambda kv: -kv[1])),
+        "busy_ms_per_call": busy / 1e3 / calls,
+        "span_ms_per_call": span / 1e3 / calls,
+        "idle_share": 1.0 - busy / span if span > 0 else None,
+        "top_kernels": [(n[:90], ms, cnt // calls) for n, (ms, cnt) in top],
+    }
+
+
+def main(argv=None) -> int:
+    parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    parser.add_argument("--size", type=int, default=1024)
+    parser.add_argument("--batch", type=int, default=1)
+    parser.add_argument("--iters", type=int, default=5)
+    args = parser.parse_args(argv)
+    if not torch.cuda.is_available():
+        raise SystemExit("breakdown: needs a CUDA card")
+
+    from piv_liteflownet_tpu_torch import piv_liteflownet
+    from piv_liteflownet_tpu_torch.inference import estimate
+    from piv_liteflownet_tpu_torch.utils.synthetic import particle_pair
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    model = piv_liteflownet(version=1, seed=0)
+    im1, im2 = particle_pair(args.batch, args.size, args.size, seed=0)
+    t1, t2 = torch.from_numpy(im1).cuda(), torch.from_numpy(im2).cuda()
+    for _ in range(3):
+        estimate(model, t1, t2, tensor=True)
+    torch.cuda.synchronize()
+    acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
+    with torch.profiler.profile(activities=acts) as prof:
+        for _ in range(args.iters):
+            estimate(model, t1, t2, tensor=True)
+        torch.cuda.synchronize()
+    kernels = [(e.name, e.time_range.start, e.time_range.end) for e in prof.events()
+               if e.device_type == torch.autograd.DeviceType.CUDA]
+    card = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+        check=True, capture_output=True, text=True, timeout=60).stdout.strip().splitlines()[0]
+    if not kernels:
+        print(f"breakdown {args.size}x{args.size} b{args.batch}: the profiler saw no CUDA "
+              f"events; device time not measured ({card})", flush=True)
+        return 1
+    out = summarize(kernels, args.iters)
+    out.update(size=args.size, batch=args.batch, calls=args.iters, card=card)
+    print(json.dumps(out, indent=1), flush=True)
+    return 0
+
+
+if __name__ == "__main__":
+    raise SystemExit(main())

@@ -1,0 +1,46 @@
+"""Hand-written CUDA kernels of the port: build, binding and launch checks.
+
+``build.py`` compiles ``csrc/*.cu`` with ``nvcc`` into one C-ABI library and
+binds it with ``ctypes``. The wrappers in ``ops/`` use :func:`on_cuda` to pick
+the path: a CPU tensor takes the op's plain PyTorch version, a CUDA tensor
+launches the kernel (or raises), anything else raises.
+"""
+
+from __future__ import annotations
+
+import torch
+
+from piv_liteflownet_tpu_torch.kernels import build
+
+#: Largest element count a kernel indexes with 32-bit ints.
+MAX_NUMEL = 2**31 - 1
+
+
+def on_cuda(op: str, *tensors: torch.Tensor) -> bool:
+    """Check the operands of ``op``; True if they lie on a CUDA device, False on the CPU.
+
+    Every operand must be a contiguous float32 tensor on the same device.
+    """
+    dev = tensors[0].device
+    for t in tensors:
+        if t.device != dev:
+            raise ValueError(f"{op}: operands on different devices ({dev}, {t.device})")
+        if t.dtype != torch.float32:
+            raise TypeError(f"{op}: expected float32, got {t.dtype}")
+        if not t.is_contiguous():
+            raise ValueError(f"{op}: operands must be contiguous")
+        if t.numel() > MAX_NUMEL:
+            raise ValueError(f"{op}: {t.numel()} elements exceed the kernel's 32-bit indexing")
+    if dev.type == "cpu":
+        return False
+    if dev.type != "cuda":
+        raise ValueError(f"{op}: no kernel or plain path for device {dev}")
+    return True
+
+
+def launch(fn_name: str, op: str, device: torch.device, *args) -> None:
+    """Call the C entry point ``fn_name`` on ``device``'s current stream; raise on a CUDA error."""
+    lib = build.load()
+    stream = torch.cuda.current_stream(device).cuda_stream
+    rc = getattr(lib, fn_name)(*args, device.index or 0, stream)
+    build.check(rc, op)

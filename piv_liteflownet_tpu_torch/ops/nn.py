@@ -1,0 +1,33 @@
+"""Small NCHW ops of the model, ports of ``piv_liteflownet_tpu/ops/nn.py``."""
+
+from __future__ import annotations
+
+import torch
+import torch.nn.functional as F
+
+NEGATIVE_SLOPE = 0.1
+
+
+def leaky_relu(x: torch.Tensor) -> torch.Tensor:
+    """``LeakyReLU(0.1)`` (port of ``leaky_relu``)."""
+    return F.leaky_relu(x, NEGATIVE_SLOPE)
+
+
+def depthwise_deconv4x2(x: torch.Tensor, weight: torch.Tensor) -> torch.Tensor:
+    """``ConvTranspose2d(C, C, 4, stride=2, padding=1, groups=C, bias=False)``.
+
+    ``weight`` is the torch layout ``(C, 1, 4, 4)``, not flipped (port of
+    ``depthwise_deconv4x2``, whose JAX weight is the flipped ``(4, 4, 1, C)``).
+    """
+    return F.conv_transpose2d(x, weight, stride=2, padding=1, groups=x.shape[1])
+
+
+def unfold(x: torch.Tensor, k: int) -> torch.Tensor:
+    """``k*k`` zero-padded patches of a ``[B,1,H,W]`` map as ``[B,k*k,H,W]``.
+
+    Port of ``unfold_nhwc``: ``F.unfold`` order, patch ``d = dy*k + dx``.
+    """
+    b, c, h, w = x.shape
+    if c != 1:
+        raise ValueError(f"unfold: expected one channel, got {c}")
+    return F.unfold(x, k, padding=(k - 1) // 2).view(b, k * k, h, w)
