@@ -1,14 +1,15 @@
-"""Where the device time of ``estimate`` goes, from a ``torch.profiler`` trace on the card.
+"""Where the device time of ``estimate`` or of a train step goes, from a ``torch.profiler`` trace.
 
-    python -m piv_liteflownet_tpu_torch.breakdown [--size 1024] [--batch 1] [--iters 5]
+    python -m piv_liteflownet_tpu_torch.breakdown [--size 1024] [--batch 1] [--iters 5] [--train]
 
 Runs PIV-LiteFlowNet-en v1 (seeded random weights) on a synthetic particle
-pair with the inputs on the card, traces ``--iters`` calls after a warm-up,
-and prints per call: the device time of each group of CUDA kernels (convs,
-the port's three kernels, elementwise, resize, memory copies, other), the
-device busy time, the span from the first kernel's start to the last
-kernel's end, and the device idle share within that span, followed by the
-top kernels by device time. Needs a CUDA card.
+pair with the inputs on the card, traces ``--iters`` calls of ``estimate``
+(or, with ``--train``, of the Adam train step with the piv loss) after a
+warm-up, and prints per call: the device time of each group of CUDA kernels
+(convs, the port's kernels, the optimizer, elementwise, resize, memory
+copies, other), the device busy time, the span from the first kernel's
+start to the last kernel's end, and the device idle share within that span,
+followed by the top kernels by device time. Needs a CUDA card.
 """
 
 from __future__ import annotations
@@ -25,7 +26,11 @@ GROUPS = (
     ("corr49", ("corr49_kernel",)),
     ("backwarp", ("backwarp_kernel",)),
     ("rgb_warp_norm", ("rgb_warp_norm_kernel",)),
-    ("conv", ("conv", "gemm", "xmma", "cutlass", "cudnn", "implicit", "winograd", "fft", "sm90_")),
+    ("corr49_bwd", ("corr49_bwd_kernel",)),
+    ("backwarp_bwd", ("backwarp_bwd_kernel",)),
+    ("conv", ("conv", "gemm", "xmma", "cutlass", "cudnn", "implicit", "winograd", "fft", "sm90_",
+              "wgrad", "dgrad")),
+    ("optimizer", ("multi_tensor", "adam")),
     ("resize", ("upsample",)),
     ("memcpy/memset", ("memcpy", "memset")),
     ("elementwise/reduce", ("elementwise", "reduce", "vectorized", "cat", "index", "gather", "copy")),
@@ -80,6 +85,7 @@ def main(argv=None) -> int:
     parser.add_argument("--size", type=int, default=1024)
     parser.add_argument("--batch", type=int, default=1)
     parser.add_argument("--iters", type=int, default=5)
+    parser.add_argument("--train", action="store_true", help="trace train steps, not estimate")
     args = parser.parse_args(argv)
     if not torch.cuda.is_available():
         raise SystemExit("breakdown: needs a CUDA card")
@@ -91,15 +97,32 @@ def main(argv=None) -> int:
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     model = piv_liteflownet(version=1, seed=0)
-    im1, im2 = particle_pair(args.batch, args.size, args.size, seed=0)
+    shift = (2.5, -1.5)
+    im1, im2 = particle_pair(args.batch, args.size, args.size, seed=0, shift=shift)
     t1, t2 = torch.from_numpy(im1).cuda(), torch.from_numpy(im2).cuda()
+    if args.train:
+        from piv_liteflownet_tpu_torch.parallel.train_step import TrainState, make_train_step
+        from piv_liteflownet_tpu_torch.training.loss import piv_loss
+        from piv_liteflownet_tpu_torch.training.optim import make_optimizer
+
+        opt = make_optimizer(model, model.cfg.lowest_level)
+        step = make_train_step(model.cfg, piv_loss(), opt)
+        state = TrainState(model, opt)
+        target = torch.empty((args.batch, args.size, args.size, 2), device="cuda")
+        target[...] = torch.tensor(shift, device="cuda")
+
+        def call():
+            step(state, t1, t2, target)
+    else:
+        def call():
+            estimate(model, t1, t2, tensor=True)
     for _ in range(3):
-        estimate(model, t1, t2, tensor=True)
+        call()
     torch.cuda.synchronize()
     acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
     with torch.profiler.profile(activities=acts) as prof:
         for _ in range(args.iters):
-            estimate(model, t1, t2, tensor=True)
+            call()
         torch.cuda.synchronize()
     kernels = [(e.name, e.time_range.start, e.time_range.end) for e in prof.events()
                if e.device_type == torch.autograd.DeviceType.CUDA]
@@ -111,7 +134,8 @@ def main(argv=None) -> int:
               f"events; device time not measured ({card})", flush=True)
         return 1
     out = summarize(kernels, args.iters)
-    out.update(size=args.size, batch=args.batch, calls=args.iters, card=card)
+    out.update(what="train step" if args.train else "estimate", size=args.size, batch=args.batch,
+               calls=args.iters, card=card)
     print(json.dumps(out, indent=1), flush=True)
     return 0
 

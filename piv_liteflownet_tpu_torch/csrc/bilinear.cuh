@@ -6,7 +6,8 @@
 
 struct BilinearTaps {
   int off[4];   // y*W + x of the corners (y0,x0) (y0,x0+1) (y0+1,x0) (y0+1,x0+1); -1 = outside
-  float w[4];
+  float w[4];   // their weights, 0 outside
+  float wx, wy; // x - floor(x), y - floor(y)
 };
 
 __device__ __forceinline__ BilinearTaps bilinear_taps(float x, float y, int H, int W) {
@@ -15,6 +16,8 @@ __device__ __forceinline__ BilinearTaps bilinear_taps(float x, float y, int H, i
   const float yf = floorf(y);
   const float wx = x - xf;
   const float wy = y - yf;
+  t.wx = wx;
+  t.wy = wy;
   const float wxs[2] = {1.f - wx, wx};
   const float wys[2] = {1.f - wy, wy};
   // The floor is converted to int only where some corner can be inside, so a

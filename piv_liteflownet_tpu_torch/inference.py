@@ -25,7 +25,8 @@ def adaptive_size(h: int, w: int, mult: int = 32) -> Tuple[int, int]:
     return int(math.ceil(h / mult) * mult), int(math.ceil(w / mult) * mult)
 
 
-def _to_nchw(img, device: torch.device) -> torch.Tensor:
+def to_nchw(img, device: torch.device) -> torch.Tensor:
+    """``[B,H,W,C]`` numpy or tensor -> contiguous float32 ``[B,C,H,W]`` on ``device``."""
     t = img if isinstance(img, torch.Tensor) else torch.from_numpy(np.asarray(img, np.float32))
     return t.to(device=device, dtype=torch.float32).permute(0, 3, 1, 2).contiguous()
 
@@ -48,7 +49,7 @@ def estimate(model: LiteFlowNet, img1, img2, tensor: bool = False, ops: Ops = KE
     if len(img1.shape) != 4 or img1.shape[-1] != 3:
         raise ValueError(f"expected [H,W,3] or [B,H,W,3] frames, got {tuple(img1.shape)}")
     device = next(model.parameters()).device
-    x1, x2 = _to_nchw(img1, device), _to_nchw(img2, device)
+    x1, x2 = to_nchw(img1, device), to_nchw(img2, device)
     in_h, in_w = x1.shape[2], x1.shape[3]
     ah, aw = adaptive_size(in_h, in_w)
     flow = model(resize_bilinear(x1, ah, aw), resize_bilinear(x2, ah, aw), ops)

@@ -38,6 +38,8 @@ SIGNATURES = {
     "pivk_corr49_f32": (_P, _P, _P, _I, _I, _I, _I, _I, _P),
     "pivk_backwarp_f32": (_P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _P),
     "pivk_rgb_warp_norm_f32": (_P, _P, _P, _P, _I, _I, _I, _I, _P),
+    "pivk_backwarp_bwd_f32": (_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _P),
+    "pivk_corr49_bwd_f32": (_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P),
 }
 
 

@@ -1,8 +1,8 @@
-"""LiteFlowNet (version 1) eval forward as PyTorch modules, NCHW.
+"""LiteFlowNet (version 1) as PyTorch modules, NCHW: the eval and the train forward.
 
 Port of ``piv_liteflownet_tpu/models/liteflownet.py`` (``ModelConfig`` :60,
 ``param_shapes`` :201, ``_netc`` :473, ``_matching`` :498, ``_subpixel``
-:571, ``_regularization`` :631, eval ``forward`` :716) for version 1. Module
+:571, ``_regularization`` :631, ``forward`` :716) for version 1. Module
 and parameter names are the torch state-dict names of ``param_shapes``, so
 JAX params carry across by layout transposes alone (``models/convert.py``).
 
@@ -15,8 +15,10 @@ detached NetE-R occlusion norm; the rgb mean subtraction.
 The three custom ops go through :class:`Ops`: :data:`KERNEL_OPS` (the
 default) calls the wrappers that launch the CUDA kernels on CUDA tensors,
 :data:`PLAIN_OPS` calls their plain PyTorch versions on any device, which is
-the on-card reference for the kernels. Convs, deconvs, resize, unfold and
-softmax stay cuDNN/PyTorch.
+the on-card reference for the kernels. On CUDA the cost volume and the
+warp are ``torch.autograd.Function``s whose backward is a kernel as well
+(``csrc/corr49_bwd.cu``, ``csrc/backwarp_bwd.cu``); the occlusion norm has no
+gradient. Convs, deconvs, resize, unfold and softmax stay cuDNN/PyTorch.
 """
 
 from __future__ import annotations
@@ -270,7 +272,7 @@ class Regularization(nn.Module):
 
 
 class LiteFlowNet(nn.Module):
-    """LiteFlowNet version 1; ``forward`` is the eval forward."""
+    """LiteFlowNet version 1; ``forward`` is the eval forward, or with ``train=True`` the train forward."""
 
     def __init__(self, cfg: ModelConfig):
         super().__init__()
@@ -300,11 +302,14 @@ class LiteFlowNet(nn.Module):
                     -bound, bound, generator=generator)
                 p.copy_(draw)
 
-    def forward(self, img1: torch.Tensor, img2: torch.Tensor,
-                ops: Ops = KERNEL_OPS) -> torch.Tensor:
-        """``img1, img2 [B,3,H,W]`` in [0, 1], H and W multiples of 32 -> flow ``[B,2,H',W']``.
+    def forward(self, img1: torch.Tensor, img2: torch.Tensor, ops: Ops = KERNEL_OPS,
+                train: bool = False):
+        """``img1, img2 [B,3,H,W]`` in [0, 1], H and W multiples of 32.
 
-        ``H' = H / 2**(lowest_level-1)``; the flow is scaled by ``scale_factor(1)``.
+        Eval (``train=False``): the flow ``[B,2,H',W']``, ``H' = H /
+        2**(lowest_level-1)``, scaled by ``scale_factor(1)``. Train: the
+        per-level ``[flow_M, flow_S, flow_R]`` lists, coarsest level first,
+        unscaled (port of JAX ``forward(train=True)``).
         """
         cfg = self.cfg
         mean = torch.tensor(cfg.rgb_mean, dtype=img1.dtype, device=img1.device)
@@ -319,6 +324,7 @@ class LiteFlowNet(nn.Module):
             pyr2.append(resize_bilinear(pyr2[-1], h, w))
 
         flow = None
+        train_out: List[List[torch.Tensor]] = []
         for level in reversed(cfg.levels):
             i = level - cfg.lowest_level  # module list index
             li = level - 1                # feature / pyramid list index
@@ -328,7 +334,10 @@ class LiteFlowNet(nn.Module):
                 f1_in, f2_in = ext(feat1[li]), ext(feat2[li])
             else:
                 f1_in, f2_in = feat1[li], feat2[li]
-            flow = self.NetE_M[i](f1_in, f2_in, flow, ops)
-            flow = self.NetE_S[i](f1_in, f2_in, flow, ops)
-            flow = self.NetE_R[i](pyr1[li], pyr2[li], feat1[li], flow, ops)
+            flow_m = self.NetE_M[i](f1_in, f2_in, flow, ops)
+            flow_s = self.NetE_S[i](f1_in, f2_in, flow_m, ops)
+            flow = self.NetE_R[i](pyr1[li], pyr2[li], feat1[li], flow_s, ops)
+            train_out.append([flow_m, flow_s, flow])
+        if train:
+            return train_out
         return flow * cfg.scale_factor(1)

@@ -1,4 +1,4 @@
-"""Bilinear resize with ``align_corners=False`` and no antialiasing.
+"""Bilinear resize with ``align_corners=False`` and no antialiasing, and the average pool.
 
 Port of ``piv_liteflownet_tpu/ops/resize.py:resize_bilinear``, which builds
 the same interpolation (half-pixel source coordinates clamped to the frame)
@@ -17,3 +17,14 @@ def resize_bilinear(x: torch.Tensor, out_h: int, out_w: int) -> torch.Tensor:
         return x
     return F.interpolate(x, size=(out_h, out_w), mode="bilinear",
                          align_corners=False, antialias=False)
+
+
+def avg_pool(x: torch.Tensor, k: int) -> torch.Tensor:
+    """Non-overlapping ``k`` x ``k`` average pool (``nn.AvgPool2d(k, k)``) of ``[B,C,H,W]``.
+
+    Port of ``piv_liteflownet_tpu/ops/resize.py:avg_pool`` (a VALID reduce
+    window: a ragged edge is dropped); the identity for ``k == 1``.
+    """
+    if k == 1:
+        return x
+    return F.avg_pool2d(x, k, k)

@@ -8,7 +8,9 @@ value of the TPU kernel ``rgb_warp_norm_pallas`` and its guarded form
 
 ``rgb_warp_norm`` launches the CUDA kernel ``csrc/rgb_warp_norm.cu`` for CUDA
 tensors (bound by bytes; one thread per pixel, the warped rgb never stored)
-and takes :func:`rgb_warp_norm_plain` for CPU tensors.
+and takes :func:`rgb_warp_norm_plain` for CPU tensors. It has no gradient on
+either path, as in JAX (``stop_gradient`` on the norm, and a zero tangent
+for the TPU kernel): its output never requires grad, whatever its inputs do.
 """
 
 from __future__ import annotations
@@ -28,19 +30,24 @@ def rgb_warp_norm_plain(img1: torch.Tensor, img2: torch.Tensor, flow: torch.Tens
 
 
 def rgb_warp_norm(img1: torch.Tensor, img2: torch.Tensor, flow: torch.Tensor) -> torch.Tensor:
-    """Occlusion norm of ``img1`` against ``img2`` warped by ``flow``; kernel on CUDA, plain on the CPU."""
+    """Occlusion norm of ``img1`` against ``img2`` warped by ``flow``; kernel on CUDA, plain on the CPU.
+
+    No gradient: the result is detached from the inputs on both paths.
+    """
     if (img1.dim() != 4 or img1.shape[1] != 3 or img2.shape != img1.shape
             or tuple(flow.shape) != (img1.shape[0], 2, *img1.shape[2:])):
         raise ValueError(f"rgb_warp_norm: expected [B,3,H,W] x 2 and [B,2,H,W], got "
                          f"{tuple(img1.shape)}, {tuple(img2.shape)}, {tuple(flow.shape)}")
     if not kernels.on_cuda("rgb_warp_norm", img1, img2, flow):
-        return rgb_warp_norm_plain(img1, img2, flow)
+        with torch.no_grad():
+            return rgb_warp_norm_plain(img1, img2, flow)
     global launches
     b, _, h, w = img1.shape
     out = torch.empty((b, 1, h, w), device=img1.device, dtype=img1.dtype)
     if out.numel() == 0:
         return out
-    _launch(img1, img2, flow, out)
+    with torch.no_grad():
+        _launch(img1, img2, flow, out)
     launches += 1
     return out
 

@@ -23,6 +23,16 @@ FAMILIES = {"piv": piv_liteflownet, "hui": hui_liteflownet}
 CFGS = {"piv": factory.PIV_V1, "hui": factory.HUI_V1}
 
 
+@pytest.fixture(autouse=True, scope="module")
+def _one_torch_thread():
+    """The suite runs several test processes at once; torch's CPU thread pool in each of
+    them would oversubscribe the cores many times over, so these tests use one thread."""
+    before = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(before)
+
+
 @pytest.fixture
 def cuda():
     if not torch.cuda.is_available():
