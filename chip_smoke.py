@@ -5,32 +5,44 @@ Run from the repository root, with no arguments:
 
     python3 chip_smoke.py
 
-It drives PIV-LiteFlowNet-en version 1 inference and training through the
-port's entry points (``piv_liteflownet``, ``estimate``, ``write_flow``/
-``read_flow``; ``make_optimizer``, ``make_train_step``, ``Train``, ``resume``)
-at full width with seeded random weights, in five phases; each raises on
-failure, and then the script exits non-zero without the final line.
+It drives PIV-LiteFlowNet-en version 1 inference and training, and
+PIV-LiteFlowNet2-en and Hui LiteFlowNet2 (version 2) inference and training,
+also with the NetE conv stacks through the ``conv_chain`` kernel
+(``conv_impl="chain"``), through the port's entry points (``piv_liteflownet``,
+``hui_liteflownet``, ``estimate``, ``write_flow``/``read_flow``;
+``make_optimizer``, ``make_train_step``, ``Train``, ``resume``) at full width
+with seeded random weights, in five phases; each raises on failure, and then
+the script exits non-zero without the final line.
 
 1. Card and build: the card's name and power limit (nvidia-smi), and the
    ``nvcc`` build of ``piv_liteflownet_tpu_torch/csrc/*.cu`` with its seconds.
 2. Each CUDA kernel against its plain PyTorch version on the card, at the
    shapes a 1024x1024 pair gives it at every pyramid level and at odd sizes,
    with flows that point outside the frame; the two backward kernels also at
-   the shapes of a 256^2 batch-8 training step. Tolerance: atol 1e-5 for the
-   warps; 1e-5 * mean|f1*f2| for the cost volume (another summation order);
-   1e-5 * max|plain| for the backward kernels (atomics in a varying order,
-   sums over 49 taps or C channels).
-3. The slice end to end on synthetic particle-image pairs: ``estimate`` at
-   1024^2 b1 (the main path: the launch counts are set to 0 just before it
-   and read just after), 256^2 b4 and 250x300 b1 (through the /32 resize);
-   finite outputs, the same model through the plain ops on the card (atol
-   2e-4, rtol 1e-3, the tolerance of tests/test_model_parity.py), the CPU
-   model at 250x300, launches per forward, and a ``.flo`` round trip.
-4. Times: estimate ms/pair (median and p90 of 100 calls, host clock around
-   synchronised calls) and pairs/s, and with CUDA events each kernel at
-   its level-1 shape beside its plain version, the one PyTorch call that
-   computes the same function where there is one (``library_ms``; the port
-   never calls it), and its bound from the bytes and operations it needs.
+   the shapes of a 256^2 batch-8 training step; ``conv_chain`` at the piv v1
+   level-1 M, S and R stacks of a 1024^2 pair, the 6-conv v2 stacks and odd
+   sizes. Tolerance: atol 1e-5 for the warps; 1e-5 * mean|f1*f2| for the
+   cost volume (another summation order); 1e-5 * max|plain| for the backward
+   kernels (atomics in a varying order, sums over 49 taps or C channels) and
+   for ``conv_chain`` (float32 sums over up to 1170 taps per layer in another
+   order than cuDNN's, through up to 6 layers).
+3. The slices end to end on synthetic particle-image pairs: ``estimate`` of
+   piv v1, piv v2 and hui v2, with cuDNN convs and with the conv chain, at
+   1024^2 b1, 256^2 b4 and 250x300 b1 (through the /32 resize). Each path is
+   driven with the launch counts set to 0 just before it and read just after:
+   piv v1 at 1024^2 is the first slice's main path, piv v2 with the chain at
+   1024^2 this slice's. Finite outputs, the same model through the plain ops
+   on the card (atol 2e-4, rtol 1e-3, the tolerance of
+   tests/test_model_parity.py), the CPU model at 250x300, launches per
+   forward, a ``.flo`` round trip; and one ``estimate`` under torch's default
+   flags (cuDNN TF32 on), held to the CPU plain path and to the call with
+   TF32 off, beside the size of the TF32 error of an unpinned forward.
+4. Times: estimate ms/pair (median and p90 of 100 calls, 30 with the conv
+   chain; host clock around synchronised calls) and pairs/s, and with CUDA
+   events each kernel at its level-1 shape beside its plain version, the one
+   PyTorch call that computes the same function where there is one
+   (``library_ms``; the port never calls it), and its bound from the bytes
+   and operations it needs.
 5. Training at 256^2 batch 8 on synthetic particle pairs: one train step
    through the kernels (the training path: the launch counts are set to 0
    just before it and read just after) and one through the plain ops from
@@ -40,10 +52,15 @@ failure, and then the script exits non-zero without the final line.
    timed (median of 25 synchronised steps) with the peak device memory;
    then two epochs of ``Train`` with checkpoints, restored with ``resume``
    and compared with the state in memory; and the backward kernels' times.
+   Then the same check and times (10 steps) for piv v2 with the six-weight
+   ``MultiScale``, built with ``conv_impl="chain"``: training never launches
+   the forward-only chain.
 
-The line before the last is ``{"kernels": [...]}`` (``launches``: per
-estimate for the forward kernels, per train step for the backward ones;
-``launches_per_train_step`` for all five); the last line is
+The line before the last is ``{"kernels": [...]}`` (``launches``: per call of
+each kernel's own path, the piv v1 estimate for the forward kernels, the
+piv v2 chain estimate for ``conv_chain``, the piv v1 train step for the
+backward ones; ``launches_per_train_step`` of the piv v1 step and
+``launches_by_path`` for all six); the last line is
 ``{"ok": true, "device": {...}}``. Without a CUDA device it exits 2 and
 prints no result.
 """
@@ -51,6 +68,7 @@ prints no result.
 from __future__ import annotations
 
 import json
+import math
 import subprocess
 import sys
 import tempfile
@@ -67,11 +85,14 @@ WARP_ATOL = 1e-5
 CORR_RTOL = 1e-5
 MODEL_ATOL, MODEL_RTOL = 2e-4, 1e-3
 BWD_RTOL = 1e-5             # backward kernels: atol 1e-5 * max|plain|
+CHAIN_RTOL = 1e-5           # conv_chain: atol 1e-5 * max|plain|
 GRAD_RTOL, GRAD_ATOL_REL = 1e-3, 1e-4  # train step, kernels vs plain ops, per parameter
 MAIN_H = MAIN_W = 1024
 TRAIN_B, TRAIN_H, TRAIN_W = 8, 256, 256
 TRAIN_STEPS = 25  # timed steps (median); 3 more warm up
+TRAIN_STEPS_V2 = 10
 ESTIMATE_ITERS = 100  # p90 then has ten samples beyond it
+CHAIN_ESTIMATE_ITERS = 30
 
 
 def log(msg: str) -> None:
@@ -114,10 +135,46 @@ def level_shapes(h: int, w: int):
     return [(lv, (h >> (lv - 1), w >> (lv - 1)), chans[lv]) for lv in range(1, 7)]
 
 
+def chain_stack(parts_c, chain, last_k, b, h, w, seed, dev):
+    """Random inputs ``[b,c,h,w]`` and weights of a conv stack: 3x3 convs, the last one k x k."""
+    g = torch.Generator(device=dev).manual_seed(seed)
+    parts = [torch.randn((b, c, h, w), device=dev, generator=g) * 0.5 for c in parts_c]
+    weights, biases = [], []
+    for i, (cin, cout) in enumerate(chain):
+        k = last_k if i == len(chain) - 1 else 3
+        weights.append(torch.randn((cout, cin, k, k), device=dev, generator=g) / math.sqrt(k * k * cin))
+        biases.append(torch.randn((cout,), device=dev, generator=g) * 0.1)
+    return parts, weights, biases
+
+
+def chain_cases():
+    """(name, part channels, chain, last kernel, last_linear, b, h, w) of the stacks checked."""
+    from piv_liteflownet_tpu_torch.models.liteflownet import KLAST, m_chain, r_chain, s_chain
+
+    return [
+        ("v1 M level 1", [49], m_chain(1), KLAST[1], True, 1, MAIN_H, MAIN_W),
+        ("v1 S level 1", [64, 64, 2], s_chain(1, 1), KLAST[1], True, 1, MAIN_H, MAIN_W),
+        ("v1 R level 1", [1, 2, 128], r_chain(1), 3, False, 1, MAIN_H, MAIN_W),
+        ("v2 M level 2", [49], m_chain(2), KLAST[2], True, 1, MAIN_H // 2, MAIN_W // 2),
+        ("v2 S level 2", [64, 64, 2], s_chain(2, 2), KLAST[2], True, 1, MAIN_H // 2, MAIN_W // 2),
+        ("v2 S level 6", [192, 192, 2], s_chain(6, 2), KLAST[6], True, 1, 32, 32),
+        ("v2 S level 4 odd", [96, 96, 2], s_chain(4, 2), KLAST[4], True, 2, 35, 41),
+        ("R level 6 odd", [1, 2, 192], r_chain(6), 3, False, 2, 37, 53),
+    ]
+
+
+def chain_work(parts_c, weights, b, h, w):
+    """(bytes, flops) a conv stack must move and compute: inputs, weights and output once."""
+    macs = sum(wt.numel() for wt in weights) * b * h * w
+    nbytes = 4 * (b * h * w * (sum(parts_c) + weights[-1].shape[0])
+                  + sum(wt.numel() + wt.shape[0] for wt in weights))
+    return nbytes, 2 * macs
+
+
 def check_kernels(dev, ops):
-    corr, warp, rgb = ops
+    corr, warp, rgb, chain = ops
     errs = {"corr49": 0.0, "backwarp": 0.0, "rgb_warp_norm": 0.0, "backwarp_bwd": 0.0,
-            "corr49_bwd": 0.0}
+            "corr49_bwd": 0.0, "conv_chain": 0.0}
     failures = []
 
     def record(name, what, err, tol):
@@ -204,6 +261,16 @@ def check_kernels(dev, ops):
         tol = BWD_RTOL * max(float(want1.abs().max()), float(want2.abs().max()), 1.0)
         record("corr49_bwd", f"[{b},{c},{h},{w}]", err, tol)
         del f1, f2, g, want1, want2
+    with torch.no_grad():
+        for name, parts_c, stack, last_k, last_linear, b, h, w in chain_cases():
+            seed += 1
+            parts, weights, biases = chain_stack(parts_c, stack, last_k, b, h, w, seed, dev)
+            got = chain.conv_chain(parts, weights, biases, last_linear)
+            torch.cuda.synchronize()
+            want = chain.conv_chain_plain(parts, weights, biases, last_linear)
+            record("conv_chain", f"{name} [{b},{sum(parts_c)},{h},{w}] {len(stack)} convs",
+                   float((got - want).abs().max()), CHAIN_RTOL * float(want.abs().max()))
+            del parts, weights, biases, got, want
     if failures:
         raise AssertionError(f"kernels disagree with their plain versions: {failures}")
     return errs
@@ -217,40 +284,74 @@ def close(got: torch.Tensor, want: torch.Tensor, what: str) -> float:
     return err
 
 
+# (family, version, conv_impl, b, h, w, seed, launches of corr49/backwarp/rgb_warp_norm/conv_chain,
+#  held to the CPU model); the chain takes the M, S and R stacks of every level of >= 32x32
+SLICE_CASES = [
+    ("piv", 1, "cudnn", 1, MAIN_H, MAIN_W, 1, (6, 11, 6, 0), False),  # the first slice's main path
+    ("piv", 1, "cudnn", 4, 256, 256, 2, (6, 11, 6, 0), False),
+    ("piv", 1, "cudnn", 1, 250, 300, 3, (6, 11, 6, 0), True),
+    ("piv", 2, "cudnn", 1, MAIN_H, MAIN_W, 4, (5, 9, 5, 0), False),
+    ("piv", 2, "cudnn", 4, 256, 256, 5, (5, 9, 5, 0), False),
+    ("piv", 2, "cudnn", 1, 250, 300, 6, (5, 9, 5, 0), True),
+    ("hui", 2, "cudnn", 1, MAIN_H, MAIN_W, 7, (4, 7, 4, 0), False),
+    ("hui", 2, "cudnn", 1, 250, 300, 8, (4, 7, 4, 0), True),
+    ("piv", 1, "chain", 1, MAIN_H, MAIN_W, 9, (6, 11, 6, 18), False),
+    ("piv", 1, "chain", 4, 256, 256, 10, (6, 11, 6, 12), False),
+    ("piv", 1, "chain", 1, 250, 300, 11, (6, 11, 6, 12), True),
+    ("piv", 2, "chain", 1, MAIN_H, MAIN_W, 12, (5, 9, 5, 15), False),  # this slice's main path
+    ("piv", 2, "chain", 4, 256, 256, 13, (5, 9, 5, 9), False),
+    ("piv", 2, "chain", 1, 250, 300, 14, (5, 9, 5, 9), True),
+    ("hui", 2, "chain", 1, MAIN_H, MAIN_W, 15, (4, 7, 4, 12), False),
+]
+FWD_KERNELS = ("corr49", "backwarp", "rgb_warp_norm", "conv_chain")
+PATH_V1 = "estimate piv v1 1024^2 b1"
+PATH_V2_CHAIN = "estimate piv v2 conv_impl=chain 1024^2 b1"
+
+
+def build_model(family, version, conv_impl, device=None):
+    from piv_liteflownet_tpu_torch import hui_liteflownet, piv_liteflownet
+
+    fn = piv_liteflownet if family == "piv" else hui_liteflownet
+    return fn(version=version, seed=0, device=device, conv_impl=conv_impl)
+
+
 def run_slice(dev, ops):
-    from piv_liteflownet_tpu_torch import piv_liteflownet
     from piv_liteflownet_tpu_torch.inference import estimate
     from piv_liteflownet_tpu_torch.models.liteflownet import PLAIN_OPS
     from piv_liteflownet_tpu_torch.utils.flow_io import read_flow, write_flow
     from piv_liteflownet_tpu_torch.utils.synthetic import particle_pair
 
-    corr, warp, rgb = ops
-    model = piv_liteflownet(version=1, seed=0)
-    expected = (6, 11, 6)  # corr49 (one per level), backwarp (5 M + 6 S), rgb_warp_norm
-    results = {}
-    for b, h, w, seed in ((1, MAIN_H, MAIN_W, 1), (4, 256, 256, 2), (1, 250, 300, 3)):
+    models, paths = {}, {}
+    for family, version, conv_impl, b, h, w, seed, expected, on_cpu in SLICE_CASES:
+        key = (family, version, conv_impl)
+        if key not in models:
+            models[key] = build_model(*key)
+        model = models[key]
+        what = f"{family} v{version} {conv_impl} b{b} {h}x{w}"
         im1, im2 = particle_pair(b, h, w, seed)
         t1, t2 = torch.from_numpy(im1).to(dev), torch.from_numpy(im2).to(dev)
         torch.cuda.synchronize()
         reset_counts(ops)
         flow = estimate(model, t1, t2, tensor=True)
         torch.cuda.synchronize()
-        counts = (corr.launches, warp.launches, rgb.launches)
-        if (b, h, w) == (1, MAIN_H, MAIN_W):
-            results["launches"] = dict(zip(("corr49", "backwarp", "rgb_warp_norm"), counts))
+        counts = tuple(read_counts(ops)[k] for k in FWD_KERNELS)
+        if (key, b, h) == (("piv", 1, "cudnn"), 1, MAIN_H):
+            paths[PATH_V1] = dict(zip(FWD_KERNELS, counts))
+        if (key, b, h) == (("piv", 2, "chain"), 1, MAIN_H):
+            paths[PATH_V2_CHAIN] = dict(zip(FWD_KERNELS, counts))
         if counts != expected:
-            raise AssertionError(f"{b}x{h}x{w}: launches {counts} per forward, expected {expected}")
+            raise AssertionError(f"{what}: launches {counts} per forward, expected {expected}")
         if tuple(flow.shape) != (b, h, w, 2) or not bool(torch.isfinite(flow).all()):
-            raise AssertionError(f"{b}x{h}x{w}: bad flow, shape {tuple(flow.shape)}")
+            raise AssertionError(f"{what}: bad flow, shape {tuple(flow.shape)}")
         plain = estimate(model, t1, t2, tensor=True, ops=PLAIN_OPS)
-        err = close(flow, plain, f"{b}x{h}x{w} kernels vs plain ops")
-        log(f"  estimate b{b} {h}x{w}: launches corr49/backwarp/rgb_warp_norm = {counts}, "
-            f"|flow| mean {float(flow.norm(dim=-1).mean()):.4f}, max_abs_err vs plain ops {err:.3e}")
-        if (h, w) == (250, 300):
-            cpu_model = piv_liteflownet(version=1, seed=0, device="cpu")
-            ref = estimate(cpu_model, im1, im2, tensor=True)
-            err = close(flow.cpu(), ref, "250x300 card vs CPU")
-            log(f"  estimate b1 250x300: max_abs_err card vs CPU plain path {err:.3e}")
+        err = close(flow, plain, f"{what} kernels vs plain ops")
+        line = (f"  estimate {what}: launches corr49/backwarp/rgb_warp_norm/conv_chain = {counts}, "
+                f"|flow| mean {float(flow.norm(dim=-1).mean()):.4f}, max_abs_err vs plain ops {err:.3e}")
+        if on_cpu:
+            ref = estimate(build_model(*key, device="cpu"), im1, im2, tensor=True)
+            line += f", vs CPU plain path {close(flow.cpu(), ref, f'{what} card vs CPU'):.3e}"
+        log(line)
+        if (key, h, w) == (("piv", 1, "cudnn"), 250, 300):
             with tempfile.TemporaryDirectory() as tmp:
                 path = str(Path(tmp) / "pair_out.flo")
                 arr = flow[0].cpu().numpy()
@@ -258,8 +359,39 @@ def run_slice(dev, ops):
                 if not np.array_equal(read_flow(path), arr):
                     raise AssertionError(".flo round trip changed the flow")
             log("  .flo round trip: ok")
-    results["model"] = model
-    return results
+            check_tf32_repair(model, t1, t2, ref, flow)
+    return {"paths": paths, "models": models}
+
+
+def check_tf32_repair(model, t1, t2, cpu_ref, f32_flow):
+    """``estimate`` under torch's default flags (cuDNN TF32 on) runs its convs in float32: it is
+    held to the CPU plain path and to the call with TF32 off. Beside it, the TF32 error that an
+    unpinned eval forward under those flags makes."""
+    from piv_liteflownet_tpu_torch.inference import estimate, to_nchw
+    from piv_liteflownet_tpu_torch.ops.nn import f32_convs
+    from piv_liteflownet_tpu_torch.utils.synthetic import particle_pair
+
+    with torch.backends.cudnn.flags(enabled=True, allow_tf32=True):
+        flow = estimate(model, t1, t2, tensor=True)
+        torch.cuda.synchronize()
+        if not torch.backends.cudnn.allow_tf32:
+            raise AssertionError("estimate did not restore cuDNN's TF32 flag")
+        err_cpu = close(flow.cpu(), cpu_ref, "estimate under default flags vs CPU")
+        err_off = float((flow - f32_flow).abs().max())
+        im1, im2 = particle_pair(1, MAIN_H, MAIN_W, seed=16)
+        x1, x2 = to_nchw(im1, t1.device), to_nchw(im2, t1.device)
+        with torch.no_grad():
+            tf32 = model(x1, x2)
+            with f32_convs():
+                f32 = model(x1, x2)
+    if torch.backends.cudnn.allow_tf32:
+        raise AssertionError("cudnn.flags did not restore TF32 off")
+    if err_off > MODEL_ATOL:
+        raise AssertionError(f"estimate under default flags differs from TF32 off by {err_off:.3e}")
+    log(f"  TF32 repair: estimate b1 250x300 under torch's default flags (cuDNN TF32 on) vs CPU "
+        f"plain path {err_cpu:.3e}, vs the same call with TF32 off {err_off:.3e}; an unpinned "
+        f"eval forward at {MAIN_H}x{MAIN_W} with TF32 on vs float32: max abs "
+        f"{float((tf32 - f32).abs().max()):.3e} (max|flow| {float(f32.abs().max()):.3e})")
 
 
 # -- phase 4: times -------------------------------------------------------------------------
@@ -299,12 +431,12 @@ def bound_ms(nbytes: float, flops: float):
     return (t_mem, "bytes") if t_mem >= t_ops else (t_ops, "operations")
 
 
-def time_estimate(fn, b: int, what: str, card: str) -> None:
-    """Median and p90 of ``ESTIMATE_ITERS`` synchronised calls of ``fn`` (one batch of ``b`` pairs)."""
+def time_estimate(fn, b: int, what: str, card: str, iters: int = ESTIMATE_ITERS) -> None:
+    """Median and p90 of ``iters`` synchronised calls of ``fn`` (one batch of ``b`` pairs)."""
     for _ in range(3):
         fn()
     samples = []
-    for _ in range(ESTIMATE_ITERS):
+    for _ in range(iters):
         torch.cuda.synchronize()
         t0 = time.perf_counter()
         fn()
@@ -315,20 +447,25 @@ def time_estimate(fn, b: int, what: str, card: str) -> None:
         f"({len(samples)} calls), {1e3 * b / med:.2f} pairs/s ({card})")
 
 
-def time_all(dev, ops, model, card):
+def time_all(dev, ops, models, card):
     from piv_liteflownet_tpu_torch.inference import estimate
     from piv_liteflownet_tpu_torch.utils.synthetic import particle_pair
 
-    corr, warp, rgb = ops
-    for b, h, w in ((1, MAIN_H, MAIN_W), (4, 256, 256)):
+    corr, warp, rgb, chain = ops
+    for (family, version, conv_impl), b, h, w in (
+            (("piv", 1, "cudnn"), 1, MAIN_H, MAIN_W), (("piv", 1, "cudnn"), 4, 256, 256),
+            (("piv", 2, "cudnn"), 1, MAIN_H, MAIN_W), (("piv", 2, "cudnn"), 4, 256, 256),
+            (("piv", 1, "chain"), 1, MAIN_H, MAIN_W), (("piv", 2, "chain"), 1, MAIN_H, MAIN_W)):
+        model = models[family, version, conv_impl]
         im1, im2 = particle_pair(b, h, w, seed=10 + b)
         t1, t2 = torch.from_numpy(im1).to(dev), torch.from_numpy(im2).to(dev)
         time_estimate(lambda: estimate(model, t1, t2, tensor=True), b,
-                      f"{h}x{w} b{b}, inputs and flow on the card", card)
+                      f"{family} v{version} {conv_impl} {h}x{w} b{b}, inputs and flow on the card",
+                      card, CHAIN_ESTIMATE_ITERS if conv_impl == "chain" else ESTIMATE_ITERS)
     # what run.py pays per pair: numpy frames in, numpy flow out
     im1, im2 = particle_pair(1, MAIN_H, MAIN_W, seed=12)
-    time_estimate(lambda: estimate(model, im1[0], im2[0]), 1,
-                  f"{MAIN_H}x{MAIN_W} b1, numpy in and out", card)
+    time_estimate(lambda: estimate(models["piv", 1, "cudnn"], im1[0], im2[0]), 1,
+                  f"piv v1 cudnn {MAIN_H}x{MAIN_W} b1, numpy in and out", card)
 
     timer = Timer(dev)
     rows = {}
@@ -372,6 +509,22 @@ def time_all(dev, ops, model, card):
                                                align_corners=True)),
         shape=f"[{b},3,{h},{w}]",
         bound=bound_ms(4 * (3 + 3 + 2 + 1) * b * h * w, 27 * b * h * w))
+    del img, img1, img2, flow, grid, flow_r, grid_r, flow2
+    # conv_chain at the piv v1 level-1 stacks of a 1024^2 pair (the S stack is the row), the
+    # 6-conv v2 S stack at level 2, each beside the cuDNN chain (its plain version)
+    with torch.no_grad():
+        for i, (name, parts_c, stack, last_k, last_linear, b, h, w) in enumerate(chain_cases()[:5]):
+            parts, weights, biases = chain_stack(parts_c, stack, last_k, b, h, w, 40 + i, dev)
+            ms = timer(lambda: chain.conv_chain(parts, weights, biases, last_linear), iters=10)
+            plain_ms = timer(lambda: chain.conv_chain_plain(parts, weights, biases, last_linear), iters=10)
+            bound = bound_ms(*chain_work(parts_c, weights, b, h, w))
+            shape = f"[{b},{sum(parts_c)},{h},{w}] {name}"
+            if name == "v1 S level 1":
+                rows["conv_chain"] = dict(ms=ms, plain_ms=plain_ms, library_ms=None, shape=shape,
+                                          bound=bound)
+            log(f"  conv_chain     {shape:26s} {ms:.4f} ms  cuDNN chain {plain_ms:.4f} ms  bound "
+                f"{bound[0]:.4f} ms ({bound[1]}), {bound[0] / ms:.1%} of it  ({card})")
+            del parts, weights, biases
     for name, r in rows.items():
         lib = "null" if r["library_ms"] is None else f"{r['library_ms']:.4f}"
         log(f"  {name:14s} {r['shape']:26s} {r['ms']:.4f} ms  plain {r['plain_ms']:.4f} ms  "
@@ -382,15 +535,16 @@ def time_all(dev, ops, model, card):
 # -- phase 5: training -------------------------------------------------------------------------
 
 def reset_counts(ops) -> None:
-    corr, warp, rgb = ops
-    corr.launches = warp.launches = rgb.launches = 0
+    corr, warp, rgb, chain = ops
+    corr.launches = warp.launches = rgb.launches = chain.launches = 0
     corr.bwd_launches = warp.bwd_launches = 0
 
 
 def read_counts(ops) -> dict:
-    corr, warp, rgb = ops
+    corr, warp, rgb, chain = ops
     return {"corr49": corr.launches, "backwarp": warp.launches, "rgb_warp_norm": rgb.launches,
-            "corr49_bwd": corr.bwd_launches, "backwarp_bwd": warp.bwd_launches}
+            "conv_chain": chain.launches, "corr49_bwd": corr.bwd_launches,
+            "backwarp_bwd": warp.bwd_launches}
 
 
 def run_training(dev, ops, card):
@@ -422,7 +576,8 @@ def run_training(dev, ops, card):
     state, metrics = step(state, *batch)
     torch.cuda.synchronize()
     counts = read_counts(ops)
-    expected = {"corr49": 6, "backwarp": 11, "rgb_warp_norm": 6, "corr49_bwd": 6, "backwarp_bwd": 11}
+    expected = {"corr49": 6, "backwarp": 11, "rgb_warp_norm": 6, "conv_chain": 0, "corr49_bwd": 6,
+                "backwarp_bwd": 11}
     if counts != expected:
         raise AssertionError(f"train step launches {counts}, expected {expected}")
     grads_k = {n: p.grad.clone() for n, p in state.model.named_parameters()}
@@ -505,9 +660,79 @@ def run_training(dev, ops, card):
     return {"launches": counts, "ms_step": med, "p90": p90, "peak": peak}
 
 
+def run_training_v2(dev, ops, card):
+    """One piv v2 train step with the six-weight MultiScale through the kernels against one
+    through the plain ops; launches 5/9/5 + 5/9 and no conv_chain (the model is built with
+    ``conv_impl="chain"``, which training never takes); ms/step and peak memory."""
+    from piv_liteflownet_tpu_torch.models.liteflownet import KERNEL_OPS, PLAIN_OPS
+    from piv_liteflownet_tpu_torch.parallel.train_step import TrainState, make_train_step
+    from piv_liteflownet_tpu_torch.training.loss import v2_multiscale
+    from piv_liteflownet_tpu_torch.training.optim import make_optimizer
+    from piv_liteflownet_tpu_torch.utils.synthetic import particle_pair
+
+    shift = (2.5, -1.5)
+    im1, im2 = particle_pair(TRAIN_B, TRAIN_H, TRAIN_W, seed=21, shift=shift)
+    target = np.empty((TRAIN_B, TRAIN_H, TRAIN_W, 2), np.float32)
+    target[...] = shift
+    batch = tuple(torch.from_numpy(a).to(dev) for a in (im1, im2, target))
+
+    def build(ops_):
+        model = build_model("piv", 2, "chain")
+        opt = make_optimizer(model, model.cfg.lowest_level)
+        return TrainState(model, opt), make_train_step(model.cfg, v2_multiscale(), opt, ops=ops_)
+
+    state, step = build(KERNEL_OPS)
+    torch.cuda.synchronize()
+    reset_counts(ops)
+    state, metrics = step(state, *batch)
+    torch.cuda.synchronize()
+    counts = read_counts(ops)
+    expected = {"corr49": 5, "backwarp": 9, "rgb_warp_norm": 5, "conv_chain": 0, "corr49_bwd": 5,
+                "backwarp_bwd": 9}
+    if counts != expected:
+        raise AssertionError(f"piv v2 train step launches {counts}, expected {expected}")
+    grads_k = {n: p.grad.clone() for n, p in state.model.named_parameters()}
+    plain_state, plain_step = build(PLAIN_OPS)
+    _, plain_metrics = plain_step(plain_state, *batch)
+    torch.cuda.synchronize()
+    worst = 0.0
+    for n, p in plain_state.model.named_parameters():
+        g = p.grad
+        torch.testing.assert_close(grads_k[n], g, rtol=GRAD_RTOL,
+                                   atol=GRAD_ATOL_REL * float(g.abs().max()), msg=lambda m: f"{n}: {m}")
+        worst = max(worst, float((grads_k[n] - g).abs().max()) / max(float(g.abs().max()), 1e-30))
+    loss_k, loss_p = float(metrics["loss"]), float(plain_metrics["loss"])
+    if not abs(loss_k - loss_p) <= 1e-5 * abs(loss_p):
+        raise AssertionError(f"piv v2 train loss kernels {loss_k} vs plain ops {loss_p}")
+    del plain_state, plain_step, grads_k
+    for _ in range(3):
+        state, metrics = step(state, *batch)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats(dev)
+    samples, losses = [], []
+    for _ in range(TRAIN_STEPS_V2):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        state, metrics = step(state, *batch)
+        torch.cuda.synchronize()
+        samples.append((time.perf_counter() - t0) * 1e3)
+        losses.append(float(metrics["loss"]))
+    peak = torch.cuda.max_memory_allocated(dev)
+    if not all(np.isfinite(losses)):
+        raise AssertionError(f"non-finite piv v2 training loss: {losses}")
+    med, p90 = np.percentile(samples, [50, 90])
+    log(f"  piv v2 train step {TRAIN_H}x{TRAIN_W} b{TRAIN_B} (six-weight MultiScale): launches {counts}; "
+        f"loss kernels {loss_k:.6f} plain {loss_p:.6f}; grads within tolerance, worst max|dg|/max|g| "
+        f"{worst:.3e}; loss after {4 + TRAIN_STEPS_V2} steps {losses[-1]:.6f}")
+    log(f"  piv v2 train step {TRAIN_H}x{TRAIN_W} b{TRAIN_B}: {med:.3f} ms/step median, p90 {p90:.3f} "
+        f"({TRAIN_STEPS_V2} steps), {1e3 * TRAIN_B / med:.2f} samples/s; peak memory "
+        f"{peak / 2**30:.3f} GiB ({card})")
+    return {"launches": counts, "ms_step": med, "p90": p90, "peak": peak}
+
+
 def time_backward(dev, ops, card):
     """Each backward kernel at its level-1 shape of a 256^2 batch-8 training step."""
-    corr, warp, _ = ops
+    corr, warp, _, _ = ops
     timer = Timer(dev)
     rows = {}
     b, c, h, w = TRAIN_B, 64, TRAIN_H, TRAIN_W
@@ -554,8 +779,9 @@ def main() -> int:
         print("chip_smoke: no CUDA device is available", file=sys.stderr, flush=True)
         return 2
     from piv_liteflownet_tpu_torch.kernels import build
-    from piv_liteflownet_tpu_torch.ops import correlation, rgb_warp, warp
+    from piv_liteflownet_tpu_torch.ops import conv_chain, correlation, rgb_warp, warp
 
+    # the kernels' plain versions call cuDNN directly: full float32 for them too
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     dev = torch.device("cuda")
@@ -573,42 +799,52 @@ def main() -> int:
             log(f"    {line.strip()}")
     build.load()
 
-    ops = (correlation, warp, rgb_warp)
+    ops = (correlation, warp, rgb_warp, conv_chain)
     log("phase 2: kernels against their plain versions")
     errs = check_kernels(dev, ops)
+    log(f"  ({time.perf_counter() - t_start:.1f} s)")
 
     log("phase 3: estimate end to end")
     sl = run_slice(dev, ops)
+    log(f"  ({time.perf_counter() - t_start:.1f} s)")
 
     log("phase 4: times")
-    rows = time_all(dev, ops, sl["model"], card)
-    del sl["model"]
+    rows = time_all(dev, ops, sl.pop("models"), card)
+    log(f"  ({time.perf_counter() - t_start:.1f} s)")
 
     log("phase 5: training")
     tr = run_training(dev, ops, card)
+    tr2 = run_training_v2(dev, ops, card)
     rows.update(time_backward(dev, ops, card))
 
     sources = {"corr49": "corr49.cu", "backwarp": "backwarp.cu", "rgb_warp_norm": "rgb_warp_norm.cu",
-               "backwarp_bwd": "backwarp_bwd.cu", "corr49_bwd": "corr49_bwd.cu"}
+               "conv_chain": "conv_chain.cu", "backwarp_bwd": "backwarp_bwd.cu",
+               "corr49_bwd": "corr49_bwd.cu"}
     replaces = {
         "corr49": "piv_liteflownet_tpu/ops/pallas_corr.py:66,162",
         "backwarp": "piv_liteflownet_tpu/ops/pallas_feat_warp.py:115",
         "rgb_warp_norm": "piv_liteflownet_tpu/ops/pallas_rgb_warp.py:119",
+        "conv_chain": "piv_liteflownet_tpu/ops/pallas_conv.py:63",
         "backwarp_bwd": "piv_liteflownet_tpu/ops/pallas_warp_vjp.py:119",
         # no TPU kernel: JAX takes the XLA VJP of the shift-stack there
         "corr49_bwd": "piv_liteflownet_tpu/ops/correlation.py:85",
     }
-    # launches: the estimate path for the forward kernels, the train step for the backward ones
-    launches = {**sl["launches"], "backwarp_bwd": tr["launches"]["backwarp_bwd"],
-                "corr49_bwd": tr["launches"]["corr49_bwd"]}
+    paths = dict(sl["paths"])
+    paths["train step piv v1 256^2 b8"] = tr["launches"]
+    paths["train step piv v2 256^2 b8"] = tr2["launches"]
+    # each kernel's own path: where its launches are counted
+    own = {"corr49": PATH_V1, "backwarp": PATH_V1, "rgb_warp_norm": PATH_V1,
+           "conv_chain": PATH_V2_CHAIN, "backwarp_bwd": "train step piv v1 256^2 b8",
+           "corr49_bwd": "train step piv v1 256^2 b8"}
     kernels = [dict(
         name=name, route="cuda", source=f"piv_liteflownet_tpu_torch/csrc/{sources[name]}",
-        replaces=replaces[name], launches=launches[name],
-        launches_per_train_step=tr["launches"][name], max_abs_err=errs[name],
-        ms=r["ms"], plain_ms=r["plain_ms"], bound_ms=r["bound"][0], bound_by=r["bound"][1],
-        library_ms=r["library_ms"]) for name, r in rows.items()]
-    if any(k["launches"] == 0 or k["launches_per_train_step"] == 0 for k in kernels):
-        raise AssertionError(f"a kernel of a path never launched: {launches}, {tr['launches']}")
+        replaces=replaces[name], launches=paths[own[name]][name],
+        launches_per_train_step=tr["launches"][name],
+        launches_by_path={p: counts.get(name, 0) for p, counts in paths.items()},
+        max_abs_err=errs[name], ms=r["ms"], plain_ms=r["plain_ms"], bound_ms=r["bound"][0],
+        bound_by=r["bound"][1], library_ms=r["library_ms"]) for name, r in rows.items()]
+    if len(kernels) != len(sources) or any(k["launches"] == 0 for k in kernels):
+        raise AssertionError(f"a kernel never launched on its path: {paths}")
     log(f"total {time.perf_counter() - t_start:.1f} s")
     log(card)
     print(json.dumps({"kernels": kernels}), flush=True)

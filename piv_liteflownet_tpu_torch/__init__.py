@@ -1,10 +1,12 @@
 """piv_liteflownet_tpu_torch: the PyTorch/CUDA port of piv_liteflownet_tpu.
 
-PIV-LiteFlowNet-en and LiteFlowNet (version 1) eval inference on an NVIDIA
-H100. The model is PyTorch; the cost volume, the feature backwarp and the
-fused rgb warp + occlusion norm are hand-written CUDA kernels
-(``csrc/*.cu``, built with ``nvcc`` at first use, see ``kernels/build.py``).
-Entry points run on the CUDA card unless the caller passes ``device="cpu"``.
+PIV-LiteFlowNet-en and LiteFlowNet, versions 1 and 2, inference and
+training on an NVIDIA H100. The model is PyTorch; the cost volume, the
+feature backwarp, the fused rgb warp + occlusion norm, the backward of the
+warp and of the cost volume, and the NetE conv chain are hand-written CUDA
+kernels (``csrc/*.cu``, built with ``nvcc`` at first use, see
+``kernels/build.py``). Entry points run on the CUDA card unless the caller
+passes ``device="cpu"``.
 """
 
 __version__ = "0.1.0"

@@ -1,11 +1,13 @@
 """Where the device time of ``estimate`` or of a train step goes, from a ``torch.profiler`` trace.
 
     python -m piv_liteflownet_tpu_torch.breakdown [--size 1024] [--batch 1] [--iters 5] [--train]
+        [--version 1] [--conv_impl cudnn]
 
-Runs PIV-LiteFlowNet-en v1 (seeded random weights) on a synthetic particle
-pair with the inputs on the card, traces ``--iters`` calls of ``estimate``
-(or, with ``--train``, of the Adam train step with the piv loss) after a
-warm-up, and prints per call: the device time of each group of CUDA kernels
+Runs PIV-LiteFlowNet-en (``--version`` 1) or PIV-LiteFlowNet2-en (2), seeded
+random weights, on a synthetic particle pair with the inputs on the card,
+traces ``--iters`` calls of ``estimate`` (or, with ``--train``, of the Adam
+train step with the piv loss; for version 2 the six-weight ``MultiScale``)
+after a warm-up, and prints per call: the device time of each group of CUDA kernels
 (convs, the port's kernels, the optimizer, elementwise, resize, memory
 copies, other), the device busy time, the span from the first kernel's
 start to the last kernel's end, and the device idle share within that span,
@@ -23,6 +25,7 @@ from typing import Iterable, List, Tuple
 import torch
 
 GROUPS = (
+    ("conv_chain", ("conv_chain_kernel",)),
     ("corr49", ("corr49_kernel",)),
     ("backwarp", ("backwarp_kernel",)),
     ("rgb_warp_norm", ("rgb_warp_norm_kernel",)),
@@ -86,6 +89,9 @@ def main(argv=None) -> int:
     parser.add_argument("--batch", type=int, default=1)
     parser.add_argument("--iters", type=int, default=5)
     parser.add_argument("--train", action="store_true", help="trace train steps, not estimate")
+    parser.add_argument("--version", type=int, choices=[1, 2], default=1)
+    parser.add_argument("--conv_impl", choices=["cudnn", "chain"], default="cudnn",
+                        help="the NetE conv stacks of estimate: cuDNN, or the conv_chain kernel")
     args = parser.parse_args(argv)
     if not torch.cuda.is_available():
         raise SystemExit("breakdown: needs a CUDA card")
@@ -94,19 +100,17 @@ def main(argv=None) -> int:
     from piv_liteflownet_tpu_torch.inference import estimate
     from piv_liteflownet_tpu_torch.utils.synthetic import particle_pair
 
-    torch.backends.cuda.matmul.allow_tf32 = False
-    torch.backends.cudnn.allow_tf32 = False
-    model = piv_liteflownet(version=1, seed=0)
+    model = piv_liteflownet(version=args.version, seed=0, conv_impl=args.conv_impl)
     shift = (2.5, -1.5)
     im1, im2 = particle_pair(args.batch, args.size, args.size, seed=0, shift=shift)
     t1, t2 = torch.from_numpy(im1).cuda(), torch.from_numpy(im2).cuda()
     if args.train:
         from piv_liteflownet_tpu_torch.parallel.train_step import TrainState, make_train_step
-        from piv_liteflownet_tpu_torch.training.loss import piv_loss
+        from piv_liteflownet_tpu_torch.training.loss import piv_loss, v2_multiscale
         from piv_liteflownet_tpu_torch.training.optim import make_optimizer
 
         opt = make_optimizer(model, model.cfg.lowest_level)
-        step = make_train_step(model.cfg, piv_loss(), opt)
+        step = make_train_step(model.cfg, piv_loss() if args.version == 1 else v2_multiscale(), opt)
         state = TrainState(model, opt)
         target = torch.empty((args.batch, args.size, args.size, 2), device="cuda")
         target[...] = torch.tensor(shift, device="cuda")
@@ -134,8 +138,8 @@ def main(argv=None) -> int:
               f"events; device time not measured ({card})", flush=True)
         return 1
     out = summarize(kernels, args.iters)
-    out.update(what="train step" if args.train else "estimate", size=args.size, batch=args.batch,
-               calls=args.iters, card=card)
+    out.update(what="train step" if args.train else "estimate", version=args.version,
+               conv_impl=args.conv_impl, size=args.size, batch=args.batch, calls=args.iters, card=card)
     print(json.dumps(out, indent=1), flush=True)
     return 0
 

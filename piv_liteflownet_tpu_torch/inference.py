@@ -2,7 +2,7 @@
 
 1. both frames are resized bilinearly (align_corners=False) to the next
    multiple of 32;
-2. one eval forward gives the scaled flow;
+2. one eval forward gives the scaled flow, its convs in full float32;
 3. the flow is resized back to the input size, u scaled by W_in/W_32 and v
    by H_in/H_32.
 
@@ -18,6 +18,7 @@ import numpy as np
 import torch
 
 from piv_liteflownet_tpu_torch.models.liteflownet import KERNEL_OPS, LiteFlowNet, Ops
+from piv_liteflownet_tpu_torch.ops.nn import f32_convs
 from piv_liteflownet_tpu_torch.ops.resize import resize_bilinear
 
 
@@ -38,7 +39,8 @@ def estimate(model: LiteFlowNet, img1, img2, tensor: bool = False, ops: Ops = KE
     img1/img2: ``[H,W,3]`` or ``[B,H,W,3]`` float32 in [0, 1] (numpy or
     torch). Returns ``[H,W,2]`` numpy for a single pair, else (or with
     ``tensor=True``) a ``[B,H,W,2]`` torch tensor on the model's device.
-    ``ops`` selects the kernels (default) or their plain versions.
+    ``ops`` selects the kernels (default) or their plain versions. The
+    convs run in full float32 whatever torch's TF32 flags say.
     """
     if tuple(img1.shape) != tuple(img2.shape):
         raise ValueError(f"both frames must have the same shape, got "
@@ -52,7 +54,8 @@ def estimate(model: LiteFlowNet, img1, img2, tensor: bool = False, ops: Ops = KE
     x1, x2 = to_nchw(img1, device), to_nchw(img2, device)
     in_h, in_w = x1.shape[2], x1.shape[3]
     ah, aw = adaptive_size(in_h, in_w)
-    flow = model(resize_bilinear(x1, ah, aw), resize_bilinear(x2, ah, aw), ops)
+    with f32_convs():
+        flow = model(resize_bilinear(x1, ah, aw), resize_bilinear(x2, ah, aw), ops)
     flow = resize_bilinear(flow, in_h, in_w)
     scale = torch.tensor([in_w / aw, in_h / ah], dtype=flow.dtype, device=device)
     flow = (flow * scale.view(1, 2, 1, 1)).permute(0, 2, 3, 1)

@@ -1,7 +1,8 @@
-"""Model factories (port of ``piv_liteflownet_tpu/models/factory.py``), version 1."""
+"""Model factories (port of ``piv_liteflownet_tpu/models/factory.py``), versions 1 and 2."""
 
 from __future__ import annotations
 
+import dataclasses
 from typing import Mapping, Optional
 
 import numpy as np
@@ -11,9 +12,13 @@ from piv_liteflownet_tpu_torch.models.liteflownet import LiteFlowNet, ModelConfi
 
 HUI_MEAN = (0.411618, 0.434631, 0.454253, 0.410782, 0.433645, 0.452793)  # Hui 2018
 PIV_MEAN_V1 = (0.173935, 0.180594, 0.192608, 0.172978, 0.179518, 0.191300)  # Cai 2019
+PIV_MEAN_V2 = (0.194286, 0.190633, 0.191766, 0.194220, 0.190595, 0.191701)  # Silitonga 2020
 
 HUI_V1 = ModelConfig(version=1, starting_scale=40, lowest_level=2, rgb_mean=HUI_MEAN)
+HUI_V2 = ModelConfig(version=2, starting_scale=40, lowest_level=3, rgb_mean=HUI_MEAN)
 PIV_V1 = ModelConfig(version=1, starting_scale=10, lowest_level=1, rgb_mean=PIV_MEAN_V1)
+PIV_V2 = ModelConfig(version=2, starting_scale=10, lowest_level=2, rgb_mean=PIV_MEAN_V2)
+CONFIGS = {("hui", 1): HUI_V1, ("hui", 2): HUI_V2, ("piv", 1): PIV_V1, ("piv", 2): PIV_V2}
 
 
 def resolve_device(device=None) -> torch.device:
@@ -25,14 +30,12 @@ def resolve_device(device=None) -> torch.device:
     return dev
 
 
-def check_version(version: int) -> None:
-    """Raise unless ``version`` is the ported version 1."""
-    if version == 2:
-        raise NotImplementedError(
-            "LiteFlowNet2 (version=2) is not ported yet; see ROADMAP.md")
-    if version != 1:
+def config(family: str, version: int, conv_impl: str = "cudnn") -> ModelConfig:
+    """The ``ModelConfig`` of ``family`` ("hui" or "piv") and ``version`` (1 or 2)."""
+    if version not in (1, 2):
         raise ValueError(
             f"Wrong input of model version (input = {version})! Choose between version 1 or 2 only!")
+    return dataclasses.replace(CONFIGS[family, version], conv_impl=conv_impl)
 
 
 def _build(cfg: ModelConfig, params: Optional[Mapping], seed: int, device) -> LiteFlowNet:
@@ -48,18 +51,19 @@ def _build(cfg: ModelConfig, params: Optional[Mapping], seed: int, device) -> Li
 
 
 def hui_liteflownet(params: Optional[Mapping] = None, version: int = 1, seed: int = 0,
-                    device=None) -> LiteFlowNet:
-    """Original LiteFlowNet (Hui 2018).
+                    device=None, conv_impl: str = "cudnn") -> LiteFlowNet:
+    """Original LiteFlowNet (Hui 2018) / LiteFlowNet2 (Hui 2020).
 
     ``params``: a torch state dict (tensors or arrays), or ``None`` for a
     seeded random init. ``device``: ``None`` means the CUDA card.
+    ``conv_impl``: see ``ModelConfig``; "chain" runs the eval forward's
+    NetE conv stacks through the ``conv_chain`` kernel.
     """
-    check_version(version)
-    return _build(HUI_V1, params, seed, device)
+    return _build(config("hui", version, conv_impl), params, seed, device)
 
 
 def piv_liteflownet(params: Optional[Mapping] = None, version: int = 1, seed: int = 0,
-                    device=None) -> LiteFlowNet:
-    """PIV-LiteFlowNet-en (Cai 2019); arguments as :func:`hui_liteflownet`."""
-    check_version(version)
-    return _build(PIV_V1, params, seed, device)
+                    device=None, conv_impl: str = "cudnn") -> LiteFlowNet:
+    """PIV-LiteFlowNet-en (Cai 2019) / PIV-LiteFlowNet2-en (Silitonga 2020); arguments as
+    :func:`hui_liteflownet`."""
+    return _build(config("piv", version, conv_impl), params, seed, device)

@@ -1,10 +1,13 @@
-"""LiteFlowNet (version 1) as PyTorch modules, NCHW: the eval and the train forward.
+"""LiteFlowNet (version 1) and LiteFlowNet2 (version 2) as PyTorch modules, NCHW: the eval and
+the train forward.
 
 Port of ``piv_liteflownet_tpu/models/liteflownet.py`` (``ModelConfig`` :60,
 ``param_shapes`` :201, ``_netc`` :473, ``_matching`` :498, ``_subpixel``
-:571, ``_regularization`` :631, ``forward`` :716) for version 1. Module
-and parameter names are the torch state-dict names of ``param_shapes``, so
-JAX params carry across by layout transposes alone (``models/convert.py``).
+:571, ``_regularization`` :631, ``forward`` :716). Version 2 has 6-conv
+NetE-M and NetE-S stacks instead of 4, and its train forward appends the
+final flow resized to the input. Module and parameter names are the torch
+state-dict names of ``param_shapes``, so JAX params carry across by layout
+transposes alone (``models/convert.py``).
 
 The quirks the JAX package reproduces are kept: the ``NetC_ext`` index
 (level 2 -> ext[0], level 1 -> ext[-1]); the stride-2 NetE-M path below
@@ -12,13 +15,17 @@ level 4, which warps and correlates only the even phase and then upsamples
 the cost volume with ``upCorr_M``; leaky_relu on the cost volume; the
 detached NetE-R occlusion norm; the rgb mean subtraction.
 
-The three custom ops go through :class:`Ops`: :data:`KERNEL_OPS` (the
+The four custom ops go through :class:`Ops`: :data:`KERNEL_OPS` (the
 default) calls the wrappers that launch the CUDA kernels on CUDA tensors,
 :data:`PLAIN_OPS` calls their plain PyTorch versions on any device, which is
 the on-card reference for the kernels. On CUDA the cost volume and the
 warp are ``torch.autograd.Function``s whose backward is a kernel as well
 (``csrc/corr49_bwd.cu``, ``csrc/backwarp_bwd.cu``); the occlusion norm has no
-gradient. Convs, deconvs, resize, unfold and softmax stay cuDNN/PyTorch.
+gradient. With ``ModelConfig.conv_impl="chain"`` the eval forward runs each
+NetE-M/S/R conv stack of a level of at least 32x32 as one ``conv_chain``
+(``csrc/conv_chain.cu``, forward only); otherwise, and always in the train
+forward, the stacks are cuDNN convs. Convs, deconvs, resize, unfold and
+softmax stay cuDNN/PyTorch.
 """
 
 from __future__ import annotations
@@ -30,7 +37,7 @@ from typing import Callable, List, Optional, Tuple
 import torch
 from torch import nn
 
-from piv_liteflownet_tpu_torch.ops import correlation, rgb_warp, warp
+from piv_liteflownet_tpu_torch.ops import conv_chain, correlation, rgb_warp, warp
 from piv_liteflownet_tpu_torch.ops.nn import NEGATIVE_SLOPE, depthwise_deconv4x2, leaky_relu, unfold
 from piv_liteflownet_tpu_torch.ops.resize import resize_bilinear
 
@@ -41,21 +48,35 @@ RDIST = [0, 49, 49, 25, 25, 9, 9]  # R distance channels
 FEAT_CH = [0, 32, 32, 64, 96, 128, 192]
 S_IN_CH = [0, 130, 130, 130, 194, 258, 386]
 R_IN_CH = [0, 131, 131, 131, 131, 131, 195]
+#: ``conv_impl`` values; the JAX package calls them "xla" and "pallas".
+CONV_IMPLS = ("cudnn", "chain")
+#: A level takes the conv chain only when its H and W are both at least this.
+CHAIN_MIN_SIZE = 32
 
 
 @dataclasses.dataclass(frozen=True)
 class ModelConfig:
+    """``version``: 1 (LiteFlowNet) or 2 (LiteFlowNet2).
+
+    ``conv_impl``: how the eval forward runs the NetE conv stacks. "cudnn"
+    (the default; JAX's "xla") is one cuDNN conv per layer. "chain" (JAX's
+    "pallas") runs each stack of a level of at least 32x32 as one
+    ``conv_chain`` kernel; the train forward always takes "cudnn".
+    """
+
     version: int = 1
     starting_scale: float = 40.0
     lowest_level: int = 2
     rgb_mean: Tuple[float, ...] = (
         0.411618, 0.434631, 0.454253, 0.410782, 0.433645, 0.452793,
     )
+    conv_impl: str = "cudnn"
 
     def __post_init__(self):
-        if self.version != 1:
-            raise NotImplementedError(
-                "only LiteFlowNet version 1 is ported; version 2 is queued in ROADMAP.md")
+        if self.version not in (1, 2):
+            raise ValueError(f"LiteFlowNet version must be 1 or 2, got {self.version}")
+        if self.conv_impl not in CONV_IMPLS:
+            raise ValueError(f"conv_impl must be one of {CONV_IMPLS}, got {self.conv_impl!r}")
 
     @property
     def levels(self) -> List[int]:
@@ -76,8 +97,25 @@ def _conv_entry(name, kh, kw, cin, cout, bias=True, transpose_groups=None):
                 transpose_groups=transpose_groups)
 
 
+def m_chain(version: int) -> List[Tuple[int, int]]:
+    """``(cin, cout)`` of each conv of the NetE-M stack: 4 convs in version 1, 6 in version 2."""
+    if version == 1:
+        return [(49, 128), (128, 64), (64, 32), (32, 2)]
+    return [(49, 128), (128, 128), (128, 96), (96, 64), (64, 32), (32, 2)]
+
+
+def s_chain(level: int, version: int) -> List[Tuple[int, int]]:
+    """The NetE-S stack: the NetE-M stack reading the level's ``S_IN_CH`` channels."""
+    return [(S_IN_CH[level], 128)] + m_chain(version)[1:]
+
+
+def r_chain(level: int) -> List[Tuple[int, int]]:
+    """The NetE-R stack, 3x3 convs with LeakyReLU after each, the last one included."""
+    return [(R_IN_CH[level], 128), (128, 128), (128, 64), (64, 64), (64, 32), (32, 32)]
+
+
 def param_shapes(cfg: ModelConfig) -> List[dict]:
-    """Conv/deconv specs in state-dict order (port of ``param_shapes``, version 1)."""
+    """Conv/deconv specs in state-dict order (port of ``param_shapes``)."""
     specs = [
         _conv_entry("NetC.conv1.0", 7, 7, 3, 32),
         _conv_entry("NetC.conv2.0", 3, 3, 32, 32),
@@ -98,19 +136,20 @@ def param_shapes(cfg: ModelConfig) -> List[dict]:
             specs.append(_conv_entry(f"{pfx}.upConv_M", 4, 4, 2, 2, bias=False, transpose_groups=2))
         if level < 4:
             specs.append(_conv_entry(f"{pfx}.upCorr_M", 4, 4, 49, 49, bias=False, transpose_groups=49))
-        for ci, (cin, cout) in enumerate([(49, 128), (128, 64), (64, 32), (32, 2)]):
-            k = KLAST[level] if ci == 3 else 3
+        chain = m_chain(cfg.version)
+        for ci, (cin, cout) in enumerate(chain):
+            k = KLAST[level] if ci == len(chain) - 1 else 3
             specs.append(_conv_entry(f"{pfx}.conv_M.{2 * ci}", k, k, cin, cout))
     for i, level in enumerate(cfg.levels):
-        for ci, (cin, cout) in enumerate([(S_IN_CH[level], 128), (128, 64), (64, 32), (32, 2)]):
-            k = KLAST[level] if ci == 3 else 3
+        chain = s_chain(level, cfg.version)
+        for ci, (cin, cout) in enumerate(chain):
+            k = KLAST[level] if ci == len(chain) - 1 else 3
             specs.append(_conv_entry(f"NetE_S.{i}.conv_S.{2 * ci}", k, k, cin, cout))
     for i, level in enumerate(cfg.levels):
         pfx = f"NetE_R.{i}"
         if level < 5:
             specs.append(_conv_entry(f"{pfx}.moduleFeat.0", 1, 1, FEAT_CH[level], 128))
-        r_chain = [(R_IN_CH[level], 128), (128, 128), (128, 64), (64, 64), (64, 32), (32, 32)]
-        for ci, (cin, cout) in enumerate(r_chain):
+        for ci, (cin, cout) in enumerate(r_chain(level)):
             specs.append(_conv_entry(f"{pfx}.conv_R.{2 * ci}", 3, 3, cin, cout))
         k, d = KLAST[level], RDIST[level]
         if level < 5:
@@ -125,15 +164,17 @@ def param_shapes(cfg: ModelConfig) -> List[dict]:
 
 @dataclasses.dataclass(frozen=True)
 class Ops:
-    """The three custom ops of the forward."""
+    """The four custom ops of the forward."""
 
     corr49: Callable[[torch.Tensor, torch.Tensor], torch.Tensor]
     backwarp: Callable[..., torch.Tensor]
     rgb_warp_norm: Callable[[torch.Tensor, torch.Tensor, torch.Tensor], torch.Tensor]
+    conv_chain: Callable[..., torch.Tensor]
 
 
-KERNEL_OPS = Ops(correlation.corr49, warp.backwarp, rgb_warp.rgb_warp_norm)
-PLAIN_OPS = Ops(correlation.corr49_plain, warp.backwarp_plain, rgb_warp.rgb_warp_norm_plain)
+KERNEL_OPS = Ops(correlation.corr49, warp.backwarp, rgb_warp.rgb_warp_norm, conv_chain.conv_chain)
+PLAIN_OPS = Ops(correlation.corr49_plain, warp.backwarp_plain, rgb_warp.rgb_warp_norm_plain,
+                conv_chain.conv_chain_plain)
 
 
 def _lrelu() -> nn.LeakyReLU:
@@ -150,6 +191,18 @@ def _conv_stack(chain, last_k: int = 3, last_pad: int = 1, last_act: bool = Fals
         if not last or last_act:
             layers.append(_lrelu())
     return nn.Sequential(*layers)
+
+
+def _run_stack(stack: nn.Sequential, parts: List[torch.Tensor], ops: Ops, chain: bool) -> torch.Tensor:
+    """``stack`` over the channel concat of ``parts``: as one ``ops.conv_chain`` when ``chain`` is
+    set and the level is at least ``CHAIN_MIN_SIZE`` square (JAX ``_use_pallas_convs``), else as
+    its cuDNN convs."""
+    h, w = parts[0].shape[2:]
+    if chain and h >= CHAIN_MIN_SIZE and w >= CHAIN_MIN_SIZE:
+        convs = [m for m in stack if isinstance(m, nn.Conv2d)]
+        last_linear = not isinstance(stack[-1], nn.LeakyReLU)
+        return ops.conv_chain(parts, [c.weight for c in convs], [c.bias for c in convs], last_linear)
+    return stack(parts[0] if len(parts) == 1 else torch.cat(parts, 1))
 
 
 def _depthwise_up(c: int) -> nn.ConvTranspose2d:
@@ -200,10 +253,9 @@ class Matching(nn.Module):
             self.upConv_M = _depthwise_up(2)
         if level < 4:
             self.upCorr_M = _depthwise_up(49)
-        self.conv_M = _conv_stack([(49, 128), (128, 64), (64, 32), (32, 2)],
-                                  KLAST[level], PLAST[level])
+        self.conv_M = _conv_stack(m_chain(cfg.version), KLAST[level], PLAST[level])
 
-    def forward(self, f1, f2, flow: Optional[torch.Tensor], ops: Ops) -> torch.Tensor:
+    def forward(self, f1, f2, flow: Optional[torch.Tensor], ops: Ops, chain: bool = False) -> torch.Tensor:
         if flow is not None:
             flow = depthwise_deconv4x2(flow, self.upConv_M.weight)
         if self.level >= 4:
@@ -218,7 +270,7 @@ class Matching(nn.Module):
             else:
                 f2s = ops.backwarp(f2, (flow[:, :, ::2, ::2] * self.sf).contiguous(), 2)
             corr = depthwise_deconv4x2(leaky_relu(ops.corr49(f1s, f2s)), self.upCorr_M.weight)
-        x = self.conv_M(corr)
+        x = _run_stack(self.conv_M, [corr], ops, chain)
         return x if flow is None else x + flow
 
 
@@ -228,12 +280,11 @@ class Subpixel(nn.Module):
     def __init__(self, cfg: ModelConfig, level: int):
         super().__init__()
         self.sf = cfg.scale_factor(level)
-        self.conv_S = _conv_stack([(S_IN_CH[level], 128), (128, 64), (64, 32), (32, 2)],
-                                  KLAST[level], PLAST[level])
+        self.conv_S = _conv_stack(s_chain(level, cfg.version), KLAST[level], PLAST[level])
 
-    def forward(self, f1, f2, flow: torch.Tensor, ops: Ops) -> torch.Tensor:
+    def forward(self, f1, f2, flow: torch.Tensor, ops: Ops, chain: bool = False) -> torch.Tensor:
         f2w = ops.backwarp(f2, flow * self.sf)
-        return self.conv_S(torch.cat([f1, f2w, flow], 1)) + flow
+        return _run_stack(self.conv_S, [f1, f2w, flow], ops, chain) + flow
 
 
 class Regularization(nn.Module):
@@ -246,9 +297,7 @@ class Regularization(nn.Module):
         k, p, d = KLAST[level], PLAST[level], RDIST[level]
         if level < 5:
             self.moduleFeat = nn.Sequential(nn.Conv2d(FEAT_CH[level], 128, 1, 1, 0), _lrelu())
-        self.conv_R = _conv_stack(
-            [(R_IN_CH[level], 128), (128, 128), (128, 64), (64, 64), (64, 32), (32, 32)],
-            last_act=True)
+        self.conv_R = _conv_stack(r_chain(level), last_act=True)
         if level < 5:
             self.conv_dist_R = nn.Sequential(
                 nn.Conv2d(32, d, (k, 1), 1, (p, 0)), nn.Conv2d(d, d, (1, k), 1, (0, p)))
@@ -257,12 +306,12 @@ class Regularization(nn.Module):
         self.moduleScaleX = nn.Conv2d(d, 1, 1, 1, 0)
         self.moduleScaleY = nn.Conv2d(d, 1, 1, 1, 0)
 
-    def forward(self, img1, img2, feat1, flow: torch.Tensor, ops: Ops) -> torch.Tensor:
+    def forward(self, img1, img2, feat1, flow: torch.Tensor, ops: Ops, chain: bool = False) -> torch.Tensor:
         k = KLAST[self.level]
         rm_flow = flow - flow.mean(dim=(2, 3), keepdim=True)
         norm = ops.rgb_warp_norm(img1, img2, flow * self.sf).detach()
         feat_r = self.moduleFeat(feat1) if self.level < 5 else feat1
-        x = self.conv_dist_R(self.conv_R(torch.cat([norm, rm_flow, feat_r], 1)))
+        x = self.conv_dist_R(_run_stack(self.conv_R, [norm, rm_flow, feat_r], ops, chain))
         negsq = -(x * x)
         dist = torch.exp(negsq - negsq.amax(dim=1, keepdim=True))
         divisor = 1.0 / dist.sum(dim=1, keepdim=True)
@@ -272,7 +321,7 @@ class Regularization(nn.Module):
 
 
 class LiteFlowNet(nn.Module):
-    """LiteFlowNet version 1; ``forward`` is the eval forward, or with ``train=True`` the train forward."""
+    """LiteFlowNet version 1 or 2; ``forward`` is the eval forward, or with ``train=True`` the train forward."""
 
     def __init__(self, cfg: ModelConfig):
         super().__init__()
@@ -309,9 +358,12 @@ class LiteFlowNet(nn.Module):
         Eval (``train=False``): the flow ``[B,2,H',W']``, ``H' = H /
         2**(lowest_level-1)``, scaled by ``scale_factor(1)``. Train: the
         per-level ``[flow_M, flow_S, flow_R]`` lists, coarsest level first,
-        unscaled (port of JAX ``forward(train=True)``).
+        unscaled, and for version 2 a last ``[flow]`` resized to ``H x W``
+        (port of JAX ``forward(train=True)``). The train forward never takes
+        the forward-only conv chain.
         """
         cfg = self.cfg
+        chain = cfg.conv_impl == "chain" and not train
         mean = torch.tensor(cfg.rgb_mean, dtype=img1.dtype, device=img1.device)
         x1 = (img1 - mean[:3].view(1, 3, 1, 1)).contiguous()
         x2 = (img2 - mean[3:].view(1, 3, 1, 1)).contiguous()
@@ -334,10 +386,12 @@ class LiteFlowNet(nn.Module):
                 f1_in, f2_in = ext(feat1[li]), ext(feat2[li])
             else:
                 f1_in, f2_in = feat1[li], feat2[li]
-            flow_m = self.NetE_M[i](f1_in, f2_in, flow, ops)
-            flow_s = self.NetE_S[i](f1_in, f2_in, flow_m, ops)
-            flow = self.NetE_R[i](pyr1[li], pyr2[li], feat1[li], flow_s, ops)
+            flow_m = self.NetE_M[i](f1_in, f2_in, flow, ops, chain)
+            flow_s = self.NetE_S[i](f1_in, f2_in, flow_m, ops, chain)
+            flow = self.NetE_R[i](pyr1[li], pyr2[li], feat1[li], flow_s, ops, chain)
             train_out.append([flow_m, flow_s, flow])
         if train:
+            if cfg.version == 2:
+                train_out.append([resize_bilinear(flow, img1.shape[2], img1.shape[3])])
             return train_out
         return flow * cfg.scale_factor(1)

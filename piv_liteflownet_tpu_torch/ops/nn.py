@@ -2,10 +2,27 @@
 
 from __future__ import annotations
 
+import contextlib
+from typing import Iterator
+
 import torch
 import torch.nn.functional as F
 
 NEGATIVE_SLOPE = 0.1
+
+
+@contextlib.contextmanager
+def f32_convs() -> Iterator[None]:
+    """Run cuDNN convs in full float32 (TF32 off), as the JAX package runs its f32 convs at
+    ``Precision.HIGHEST``; restores the caller's setting on exit. Only ``allow_tf32`` is
+    touched, through the legacy flag (mixing it with ``cudnn.conv.fp32_precision`` makes
+    later reads of the legacy flag raise)."""
+    before = torch.backends.cudnn.allow_tf32
+    torch.backends.cudnn.allow_tf32 = False
+    try:
+        yield
+    finally:
+        torch.backends.cudnn.allow_tf32 = before
 
 
 def leaky_relu(x: torch.Tensor) -> torch.Tensor:

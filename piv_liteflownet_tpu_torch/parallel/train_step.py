@@ -21,6 +21,7 @@ import torch
 
 from piv_liteflownet_tpu_torch.inference import to_nchw
 from piv_liteflownet_tpu_torch.models.liteflownet import KERNEL_OPS, LiteFlowNet, ModelConfig, Ops
+from piv_liteflownet_tpu_torch.ops.nn import f32_convs
 from piv_liteflownet_tpu_torch.ops.resize import avg_pool
 from piv_liteflownet_tpu_torch.training.loss import EPE
 
@@ -48,7 +49,8 @@ def make_train_step(cfg: ModelConfig, loss_obj, optimizer: torch.optim.Optimizer
                     compute_dtype=None) -> Callable:
     """Build ``step(state, img1, img2, target) -> (state, {"loss", "epe"})``.
 
-    ``ops`` picks the kernels (default) or their plain versions (``PLAIN_OPS``).
+    ``ops`` picks the kernels (default) or their plain versions (``PLAIN_OPS``). The
+    forward and backward convs run in full float32 whatever torch's TF32 flags say.
     """
     _not_ported(mesh=mesh, pipeline=pipeline, remat=remat,
                 compute_dtype=compute_dtype not in (None, torch.float32))
@@ -62,9 +64,10 @@ def make_train_step(cfg: ModelConfig, loss_obj, optimizer: torch.optim.Optimizer
         device = next(model.parameters()).device
         x1, x2, t = (to_nchw(a, device) for a in (img1, img2, target))
         optimizer.zero_grad(set_to_none=True)
-        lossvalue, epevalue = loss_obj(model(x1, x2, ops, train=True), t)
-        lossvalue, epevalue = _summed(lossvalue), _summed(epevalue)
-        lossvalue.backward()
+        with f32_convs():
+            lossvalue, epevalue = loss_obj(model(x1, x2, ops, train=True), t)
+            lossvalue, epevalue = _summed(lossvalue), _summed(epevalue)
+            lossvalue.backward()
         optimizer.step()
         state.step += 1
         return state, {"loss": lossvalue.detach(), "epe": epevalue.detach()}
@@ -73,7 +76,8 @@ def make_train_step(cfg: ModelConfig, loss_obj, optimizer: torch.optim.Optimizer
 
 
 def make_eval_step(cfg: ModelConfig, loss_obj) -> Callable:
-    """Validation step ``(model, img1, img2, target) -> {"loss", "epe"}``: eval forward and loss."""
+    """Validation step ``(model, img1, img2, target) -> {"loss", "epe"}``: eval forward (float32
+    convs, as in training) and loss."""
 
     @torch.no_grad()
     def step(model: LiteFlowNet, img1, img2, target) -> Dict[str, torch.Tensor]:
@@ -81,7 +85,8 @@ def make_eval_step(cfg: ModelConfig, loss_obj) -> Callable:
             raise ValueError(f"the model has config {model.cfg}, the step {cfg}")
         device = next(model.parameters()).device
         x1, x2, t = (to_nchw(a, device) for a in (img1, img2, target))
-        out = model(x1, x2)
+        with f32_convs():
+            out = model(x1, x2)
         try:
             lossvalue, epevalue = loss_obj(out, t)
         except ValueError:

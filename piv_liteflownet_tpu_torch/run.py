@@ -20,8 +20,7 @@ import torch
 
 from piv_liteflownet_tpu_torch.inference import estimate
 from piv_liteflownet_tpu_torch.models.convert import from_jax_params
-from piv_liteflownet_tpu_torch.models.factory import (
-    HUI_V1, PIV_V1, check_version, hui_liteflownet, piv_liteflownet)
+from piv_liteflownet_tpu_torch.models.factory import config, hui_liteflownet, piv_liteflownet
 from piv_liteflownet_tpu_torch.utils.flow_io import flowname_modifier, image_pairs, write_flow
 
 NETNAMES = {"hui": "Hui-LiteFlowNet", "piv": "PIV-LiteFlowNet-en"}
@@ -36,7 +35,7 @@ def build_parser() -> argparse.ArgumentParser:
                         help="Inputs are *_img1/*_img2 pairs (else consecutive frames).")
     parser.add_argument("--model", "-m", type=str, choices=["hui", "piv"], required=True)
     parser.add_argument("--version", "-v", type=int, choices=[1, 2], default=1,
-                        help="LiteFlowNet version (only 1 is ported).")
+                        help="LiteFlowNet backbone version (1 or 2).")
     parser.add_argument("--input", "-i", default=["./images/demo"], type=str, nargs="+",
                         help="Input image directory(ies).")
     parser.add_argument("--output", "-o", default="./results", type=str, help="Main output directory.")
@@ -119,8 +118,8 @@ def output_dirs(args, imdir: str) -> tuple[str, str, str]:
 
 def main(argv=None) -> None:
     args = build_parser().parse_args(argv)
-    check_version(args.version)
-    factory, cfg = (hui_liteflownet, HUI_V1) if args.model == "hui" else (piv_liteflownet, PIV_V1)
+    cfg = config(args.model, args.version)
+    factory = hui_liteflownet if args.model == "hui" else piv_liteflownet
     device = "cpu" if args.cpu else None
     weights, args.netname = load_weights(args, cfg)
     if weights is None:

@@ -142,3 +142,12 @@ def piv_loss(level_eval: bool = False, mul_scale: float = 5, norm: str = "L1", v
     if level_eval:
         return LevelLoss(div_scale=1 / mul_scale, startScale=version, n_level=6, norm=norm)
     return MultiScale(div_scale=1 / mul_scale, startScale=version, l_weight=loss_weight, norm=norm)
+
+
+def v2_multiscale(mul_scale: float = 5, norm: str = "L1") -> MultiScale:
+    """A ``MultiScale`` that fits PIV-LiteFlowNet2-en's six training outputs (five levels and the
+    full-size flow). ``piv_loss(version=2)`` has five weights and raises on them, as the JAX
+    package asserts; this six-weight form is the recipe the JAX package trains version 2 with
+    in its tests (``tests/test_training.py``)."""
+    return MultiScale(div_scale=1 / mul_scale, startScale=2,
+                      l_weight=(0.001, 0.001, 0.001, 0.001, 0.01, 0.01), norm=norm)

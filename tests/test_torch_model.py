@@ -166,8 +166,9 @@ def test_entry_points_need_a_card_unless_cpu_is_asked(monkeypatch):
 
 
 def test_version_2_is_not_ported_yet():
-    with pytest.raises(NotImplementedError, match="ROADMAP.md"):
-        piv_liteflownet(version=2, device="cpu")
+    """Version 2 is ported now (tests/test_torch_v2.py); other versions raise."""
+    with pytest.raises(ValueError, match="version"):
+        piv_liteflownet(version=3, device="cpu")
     with pytest.raises(ValueError):
         hui_liteflownet(version=3, device="cpu")
     assert factory.PIV_V1.levels == [1, 2, 3, 4, 5, 6]
