@@ -21,7 +21,11 @@ the script exits non-zero without the final line.
    with flows that point outside the frame; the two backward kernels also at
    the shapes of a 256^2 batch-8 training step; ``conv_chain`` at the piv v1
    level-1 M, S and R stacks of a 1024^2 pair, the 6-conv v2 stacks and odd
-   sizes. Tolerance: atol 1e-5 for the warps; 1e-5 * mean|f1*f2| for the
+   sizes; ``backwarp_bwd`` also with a smooth and a 30 px random flow at the
+   level-1 training shape at both strides, its count of tiles that took the
+   out-of-window path held to ``ops/warp.py:tile_windows`` in every case, and
+   both of its paths required to run. Tolerance: atol 1e-5 for the warps;
+   1e-5 * mean|f1*f2| for the
    cost volume (another summation order); 1e-5 * max|plain| for the backward
    kernels (atomics in a varying order, sums over 49 taps or C channels) and
    for ``conv_chain`` (float32 sums over up to 1170 taps per layer in another
@@ -51,7 +55,10 @@ the script exits non-zero without the final line.
    off); then steps on the one batch, whose loss must be finite and fall,
    timed (median of 25 synchronised steps) with the peak device memory;
    then two epochs of ``Train`` with checkpoints, restored with ``resume``
-   and compared with the state in memory; and the backward kernels' times.
+   and compared with the state in memory; and the backward kernels' times,
+   ``backwarp_bwd`` at the level-1 shape at stride 1 (smooth and random
+   flow) and stride 2, each beside ``grid_sampler_2d_backward`` on the same
+   inputs, its bound and its share of out-of-window tiles.
    Then the same check and times (10 steps) for piv v2 with the six-weight
    ``MultiScale``, built with ``conv_impl="chain"``: training never launches
    the forward-only chain.
@@ -180,7 +187,7 @@ def check_kernels(dev, ops):
     def record(name, what, err, tol):
         errs[name] = max(errs[name], err)
         ok = err <= tol
-        log(f"  {name:14s} {what:44s} max_abs_err {err:.3e}  tol {tol:.3e}  {'ok' if ok else 'FAIL'}")
+        log(f"  {name:14s} {what:60s} max_abs_err {err:.3e}  tol {tol:.3e}  {'ok' if ok else 'FAIL'}")
         if not ok:
             failures.append(f"{name} {what}")
 
@@ -235,20 +242,39 @@ def check_kernels(dev, ops):
         if lv < 6:
             bwd_warp_cases.append((TRAIN_B, c, h, w, s, 8.0))
     bwd_warp_cases += [(2, 5, 37, 53, 1, 30.0), (2, 7, 37, 53, 2, 30.0)]
+    # the level-1 training shape at both strides: a smooth flow (every tile in its window)
+    # and a 30 px random flow (tiles out of the window)
+    for s in (1, 2):
+        bwd_warp_cases += [(TRAIN_B, 64, TRAIN_H, TRAIN_W, s, "smooth"), (TRAIN_B, 64, TRAIN_H, TRAIN_W, s, 30.0)]
     bwd_corr_cases += [(2, 3, 37, 53)]
+    counter = warp.out_of_window_counter(dev)
+    tiles = {"window": 0, "out of window": 0}
     for b, c, h, w, s, mag in bwd_warp_cases:
         seed += 1
         img = randn((b, c, h, w), seed, dev).requires_grad_()
         ho, wo = warp.out_hw(h, w, s)
-        flow = uniform((b, 2, ho, wo), seed + 1000, dev, -mag, mag).requires_grad_()
+        flow = (smooth_flow(b, ho, wo, dev) if mag == "smooth"
+                else uniform((b, 2, ho, wo), seed + 1000, dev, -mag, mag)).requires_grad_()
         gout = randn((b, c, ho, wo), seed + 2000, dev)
+        counter.zero_()
         warp.backwarp(img, flow, s).backward(gout)
         torch.cuda.synchronize()
+        rule = warp.tile_windows(flow.detach(), h, w, s)
+        n_out, n_rule = int(counter.item()), int((~rule.fits).sum())
+        tiles["out of window"] += n_out
+        tiles["window"] += rule.fits.numel() - n_out
+        if n_out != n_rule:
+            failures.append(f"backwarp_bwd [{b},{c},{h},{w}] stride {s}: {n_out} tiles out of the "
+                            f"window, the tile rule says {n_rule}")
         want_img, want_flow = warp.backwarp_bwd_plain(img.detach(), flow.detach(), gout, s)
         err = max(float((img.grad - want_img).abs().max()), float((flow.grad - want_flow).abs().max()))
         tol = BWD_RTOL * max(float(want_img.abs().max()), float(want_flow.abs().max()), 1.0)
-        record("backwarp_bwd", f"[{b},{c},{h},{w}] stride {s} |flow|<={mag:g}", err, tol)
-        del img, flow, gout, want_img, want_flow
+        what = f"[{b},{c},{h},{w}] stride {s} " + ("smooth flow" if mag == "smooth" else f"|flow|<={mag:g}")
+        record("backwarp_bwd", f"{what}, {n_out}/{rule.fits.numel()} tiles out", err, tol)
+        del img, flow, gout, want_img, want_flow, rule
+    log(f"  backwarp_bwd tiles over these cases: {tiles} (each count equal to ops/warp.py:tile_windows)")
+    if not all(tiles.values()):
+        failures.append(f"backwarp_bwd: a path of the kernel never ran: {tiles}")
     for b, c, h, w in bwd_corr_cases:
         seed += 1
         f1 = randn((b, c, h, w), seed, dev).requires_grad_()
@@ -419,10 +445,10 @@ class Timer:
         return float(np.median(samples))
 
 
-def pixel_grid(flow: torch.Tensor, h: int, w: int) -> torch.Tensor:
-    """grid_sample grid (align_corners=True) that samples at (x + u, y + v)."""
-    xs = torch.arange(w, device=flow.device, dtype=torch.float32) + flow[:, 0]
-    ys = torch.arange(h, device=flow.device, dtype=torch.float32)[:, None] + flow[:, 1]
+def pixel_grid(flow: torch.Tensor, h: int, w: int, stride: int = 1) -> torch.Tensor:
+    """grid_sample grid (align_corners=True) on an h x w map that samples at (s*x + u, s*y + v)."""
+    xs = stride * torch.arange(flow.shape[3], device=flow.device, dtype=torch.float32) + flow[:, 0]
+    ys = stride * torch.arange(flow.shape[2], device=flow.device, dtype=torch.float32)[:, None] + flow[:, 1]
     return torch.stack([2 * xs / (w - 1) - 1, 2 * ys / (h - 1) - 1], dim=-1)
 
 
@@ -736,29 +762,42 @@ def time_backward(dev, ops, card):
     timer = Timer(dev)
     rows = {}
     b, c, h, w = TRAIN_B, 64, TRAIN_H, TRAIN_W
-    img, flow = randn((b, c, h, w), 31, dev), smooth_flow(b, h, w, dev)
-    gout = randn((b, c, h, w), 32, dev)
-    g_img, g_flow = torch.empty_like(img), torch.empty_like(flow)
-    grid = pixel_grid(flow, h, w)
-    rows["backwarp_bwd"] = dict(
-        ms=timer(lambda: warp._launch_bwd(img, flow, gout, 1, g_img, g_flow)),
-        plain_ms=timer(lambda: warp.backwarp_bwd_plain(img, flow, gout)),
-        library_ms=timer(lambda: torch.ops.aten.grid_sampler_2d_backward(
-            gout, img, grid, 0, 0, True, [True, True])),
-        shape=f"[{b},{c},{h},{w}] stride 1",
-        bound=bound_ms(4 * (3 * b * c * h * w + 4 * b * h * w), 24 * b * c * h * w))
-    flow_r = uniform((b, 2, h, w), 33, dev, -8, 8)
-    grid_r = pixel_grid(flow_r, h, w)
-    log(f"  backwarp_bwd [{b},{c},{h},{w}] stride 1, random |flow|<=8: "
-        f"{timer(lambda: warp._launch_bwd(img, flow_r, gout, 1, g_img, g_flow)):.4f} ms, "
-        f"grid_sampler_2d_backward {timer(lambda: torch.ops.aten.grid_sampler_2d_backward(gout, img, grid_r, 0, 0, True, [True, True])):.4f} ms")
-    flow2 = smooth_flow(b, h // 2, w // 2, dev)
-    gout2 = randn((b, c, h // 2, w // 2), 34, dev)
-    g_flow2 = torch.empty_like(flow2)
-    m2 = timer(lambda: warp._launch_bwd(img, flow2, gout2, 2, g_img, g_flow2))
-    log(f"  backwarp_bwd [{b},{c},{h},{w}] stride 2 (NetE-M, level 1): {m2:.4f} ms; bound "
-        f"{bound_ms(4 * (2 * b * c * h * w + b * c * h * w // 4 + b * h * w), 6 * b * c * h * w)[0]:.4f} ms (bytes)")
-    del img, gout, g_img, grid, flow_r, grid_r, gout2
+    img = randn((b, c, h, w), 31, dev)
+    g_img = torch.empty_like(img)
+    counter = warp.out_of_window_counter(dev)
+    cases = []
+    # the level-1 NetE-S warp (stride 1) with a smooth and a random flow, the NetE-M warp (stride 2)
+    for s, kind in ((1, "smooth"), (1, 8.0), (2, "smooth")):
+        ho, wo = warp.out_hw(h, w, s)
+        flow = smooth_flow(b, ho, wo, dev) if kind == "smooth" else uniform((b, 2, ho, wo), 33, dev, -kind, kind)
+        gout = randn((b, c, ho, wo), 32 + s, dev)
+        g_flow = torch.empty_like(flow)
+        grid = pixel_grid(flow, h, w, s)
+        counter.zero_()
+        warp._launch_bwd(img, flow, gout, s, g_img, g_flow)
+        torch.cuda.synchronize()
+        n_out, n_tiles = int(counter.item()), warp.tile_windows(flow, h, w, s).fits.numel()
+        # each input read once, each output written once
+        nbytes = 4 * (2 * b * c * h * w + b * c * ho * wo + 2 * 2 * b * ho * wo)
+        case = dict(
+            shape=f"[{b},{c},{h},{w}] stride {s}", flow="smooth" if kind == "smooth" else f"random |flow|<={kind:g}",
+            ms=timer(lambda: warp._launch_bwd(img, flow, gout, s, g_img, g_flow)),
+            library_ms=timer(lambda: torch.ops.aten.grid_sampler_2d_backward(
+                gout, img, grid, 0, 0, True, [True, True])),
+            bound=bound_ms(nbytes, 24 * b * c * ho * wo), out_of_window_tiles=n_out, tiles=n_tiles)
+        if s == 1 and kind == "smooth":
+            case["plain_ms"] = timer(lambda: warp.backwarp_bwd_plain(img, flow, gout, s))
+            rows["backwarp_bwd"] = dict(ms=case["ms"], plain_ms=case["plain_ms"], library_ms=case["library_ms"],
+                                        shape=case["shape"], bound=case["bound"])
+        cases.append(case)
+        log(f"  backwarp_bwd {case['shape']}, {case['flow']}: {case['ms']:.4f} ms, grid_sampler_2d_backward "
+            f"{case['library_ms']:.4f} ms (kernel/library {case['ms'] / case['library_ms']:.3f}), bound "
+            f"{case['bound'][0]:.4f} ms ({case['bound'][1]}, {case['bound'][0] / case['ms']:.1%} of it); "
+            f"tiles out of the window {n_out}/{n_tiles} ({n_out / n_tiles:.1%})  ({card})")
+        del flow, gout, g_flow, grid
+    rows["backwarp_bwd"]["cases"] = [
+        {k: (v[0] if k == "bound" else v) for k, v in case.items()} for case in cases]
+    del img, g_img
     b, c, h, w = TRAIN_B, 64, TRAIN_H // 2, TRAIN_W // 2
     f1, f2, g = randn((b, c, h, w), 35, dev), randn((b, c, h, w), 36, dev), randn((b, 49, h, w), 37, dev)
     g_f1, g_f2 = torch.empty_like(f1), torch.empty_like(f2)
@@ -842,7 +881,8 @@ def main() -> int:
         launches_per_train_step=tr["launches"][name],
         launches_by_path={p: counts.get(name, 0) for p, counts in paths.items()},
         max_abs_err=errs[name], ms=r["ms"], plain_ms=r["plain_ms"], bound_ms=r["bound"][0],
-        bound_by=r["bound"][1], library_ms=r["library_ms"]) for name, r in rows.items()]
+        bound_by=r["bound"][1], library_ms=r["library_ms"], **({"cases": r["cases"]} if "cases" in r else {}))
+        for name, r in rows.items()]
     if len(kernels) != len(sources) or any(k["launches"] == 0 for k in kernels):
         raise AssertionError(f"a kernel never launched on its path: {paths}")
     log(f"total {time.perf_counter() - t_start:.1f} s")

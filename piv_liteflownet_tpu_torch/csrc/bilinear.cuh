@@ -8,6 +8,7 @@ struct BilinearTaps {
   int off[4];   // y*W + x of the corners (y0,x0) (y0,x0+1) (y0+1,x0) (y0+1,x0+1); -1 = outside
   float w[4];   // their weights, 0 outside
   float wx, wy; // x - floor(x), y - floor(y)
+  int x0, y0;   // the corner (y0,x0) itself; meaningful only where some tap is inside
 };
 
 __device__ __forceinline__ BilinearTaps bilinear_taps(float x, float y, int H, int W) {
@@ -26,6 +27,8 @@ __device__ __forceinline__ BilinearTaps bilinear_taps(float x, float y, int H, i
   const bool yr = yf >= -1.f && yf <= (float)(H - 1);
   const int xi = xr ? (int)xf : 0;
   const int yi = yr ? (int)yf : 0;
+  t.x0 = xi;
+  t.y0 = yi;
 #pragma unroll
   for (int k = 0; k < 4; ++k) {
     const int cx = xi + (k & 1);

@@ -13,11 +13,17 @@ bound by bytes, one thread per output pixel looping over channels) and takes
 CUDA the op is a ``torch.autograd.Function`` whose backward launches
 ``csrc/backwarp_bwd.cu`` (the port of the TPU warp-VJP kernel
 ``ops/pallas_warp_vjp.py:warp_img_grad_pallas``): the image and flow
-gradients in one launch, exact for every flow and both strides.
-:func:`backwarp_bwd_plain` is its plain version.
+gradients in one launch, exact for every flow and both strides: a tile of
+output pixels whose taps fit a shared-memory window (:func:`tile_windows`)
+reduces them there and flushes the window with vector reductions, any other
+tile scatters with global atomics and is counted in
+:func:`out_of_window_counter`. :func:`backwarp_bwd_plain` is its plain
+version.
 """
 
 from __future__ import annotations
+
+from typing import NamedTuple
 
 import torch
 
@@ -28,9 +34,26 @@ launches = 0
 #: Launches of the backward kernel, made by the backward of :func:`backwarp` on CUDA.
 bwd_launches = 0
 
+#: The backward kernel's tile of output pixels, (width, height): one warp's, a lane each.
+TILE_W, TILE_H = 32, 1
+#: The float4 that a tile's shared-memory window holds (``CAP`` in ``csrc/backwarp_bwd.cu``):
+#: its footprint's rows times its columns of 4, counted from x0, must not exceed it.
+WINDOW_VEC4 = 352
+_counters: dict[torch.device, torch.Tensor] = {}
+
 
 def out_hw(h: int, w: int, stride: int) -> tuple[int, int]:
     return -(-h // stride), -(-w // stride)
+
+
+def _corners(flow: torch.Tensor, stride: int):
+    """Sample points ``x, y [B,h,w]`` (pixels, float32) and their floors ``x0, y0``."""
+    ho, wo = flow.shape[2], flow.shape[3]
+    xs = torch.arange(wo, device=flow.device, dtype=torch.float32) * stride
+    ys = torch.arange(ho, device=flow.device, dtype=torch.float32) * stride
+    x = xs[None, None, :] + flow[:, 0]
+    y = ys[None, :, None] + flow[:, 1]
+    return x, y, torch.floor(x), torch.floor(y)
 
 
 def _taps(img: torch.Tensor, flow: torch.Tensor, stride: int):
@@ -41,12 +64,7 @@ def _taps(img: torch.Tensor, flow: torch.Tensor, stride: int):
     """
     b, _, h, w = img.shape
     ho, wo = flow.shape[2], flow.shape[3]
-    xs = torch.arange(wo, device=img.device, dtype=torch.float32) * stride
-    ys = torch.arange(ho, device=img.device, dtype=torch.float32) * stride
-    x = xs[None, None, :] + flow[:, 0]
-    y = ys[None, :, None] + flow[:, 1]
-    x0 = torch.floor(x)
-    y0 = torch.floor(y)
+    x, y, x0, y0 = _corners(flow, stride)
     wx = x - x0
     wy = y - y0
     taps = []
@@ -98,6 +116,64 @@ def backwarp_bwd_plain(img: torch.Tensor, flow: torch.Tensor, gout: torch.Tensor
         g_u += gv_sum * (wgt_y if dx else -wgt_y)
         g_v += gv_sum * (wgt_x if dy else -wgt_x)
     return g_img.reshape(b, c, h, w), torch.stack([g_u, g_v], 1)
+
+
+class TileWindows(NamedTuple):
+    """Per tile ``[B, ceil(h/TILE_H), ceil(w/TILE_W)]`` of the backward kernel (int64, bool)."""
+
+    x0: torch.Tensor      # window origin: min x of the taps, rounded down to a multiple of 4
+    y0: torch.Tensor      # min y of the taps
+    width: torch.Tensor   # max x - x0 + 1; 0 where no tap of the tile lies inside the map
+    height: torch.Tensor  # max y - y0 + 1; 0 there too
+    fits: torch.Tensor    # the window path: ceil(width / 4) * height <= WINDOW_VEC4
+
+
+def tile_windows(flow: torch.Tensor, h: int, w: int, stride: int) -> TileWindows:
+    """The tile rule of ``csrc/backwarp_bwd.cu``: each tile's footprint and whether it fits.
+
+    A tile is ``TILE_W x TILE_H`` output pixels; its footprint is the bounding box of
+    the taps of its pixels that lie inside the ``h x w`` map. The kernel reduces a
+    tile that fits ``WINDOW_VEC4`` in shared memory and scatters any other
+    tile with global atomics; a tile with no tap inside fits.
+    """
+    b, _, ho, wo = flow.shape
+    nty, ntx = -(-ho // TILE_H), -(-wo // TILE_W)
+    _, _, x0, y0 = _corners(flow, stride)
+    cx = torch.stack([x0, x0 + 1, x0, x0 + 1])  # the four taps, as in _taps
+    cy = torch.stack([y0, y0, y0 + 1, y0 + 1])
+    ok = (cx >= 0) & (cx <= w - 1) & (cy >= 0) & (cy <= h - 1)
+
+    def per_tile(v, fill, reduce):  # over the taps inside the map of each tile's pixels
+        t = torch.full((4, b, nty * TILE_H, ntx * TILE_W), fill, device=flow.device)
+        t[:, :, :ho, :wo] = torch.where(ok, v, fill)
+        return reduce(t.reshape(4, b, nty, TILE_H, ntx, TILE_W), dim=(0, 3, 5))
+
+    inf = float("inf")
+    xmin, xmax = per_tile(cx, inf, torch.amin), per_tile(cx, -inf, torch.amax)
+    ymin, ymax = per_tile(cy, inf, torch.amin), per_tile(cy, -inf, torch.amax)
+    empty = torch.isinf(xmin)
+    wx0 = torch.where(empty, 0.0, torch.floor(xmin / 4) * 4)
+    wy0 = torch.where(empty, 0.0, ymin)
+    width = torch.where(empty, 0.0, xmax - wx0 + 1)
+    height = torch.where(empty, 0.0, ymax - wy0 + 1)
+    fits = torch.div(width + 3, 4, rounding_mode="floor") * height <= WINDOW_VEC4
+    return TileWindows(wx0.long(), wy0.long(), width.long(), height.long(), fits)
+
+
+def out_of_window_tiles(flow: torch.Tensor, h: int, w: int, stride: int) -> int:
+    """How many tiles :func:`tile_windows` sends down the kernel's global-atomic path."""
+    return int((~tile_windows(flow, h, w, stride).fits).sum())
+
+
+def out_of_window_counter(device: torch.device) -> torch.Tensor:
+    """The backward kernel's running count (int32, on ``device``) of tiles that took the
+    global-atomic path; a caller zeroes it to count over a stretch of launches."""
+    device = torch.device(device)
+    if device.type == "cuda" and device.index is None:  # the key the kernel's launches use
+        device = torch.device("cuda", torch.cuda.current_device())
+    if device not in _counters:
+        _counters[device] = torch.zeros(1, dtype=torch.int32, device=device)
+    return _counters[device]
 
 
 class _Backwarp(torch.autograd.Function):
@@ -156,8 +232,10 @@ def _launch(img: torch.Tensor, flow: torch.Tensor, stride: int, out: torch.Tenso
 
 def _launch_bwd(img: torch.Tensor, flow: torch.Tensor, gout: torch.Tensor, stride: int,
                 g_img: torch.Tensor, g_flow: torch.Tensor) -> None:
-    """The backward kernel call itself (a test can substitute a fake); it overwrites both outputs."""
+    """The backward kernel call itself (a test can substitute a fake); it overwrites both
+    outputs and adds its out-of-window tiles to :func:`out_of_window_counter`."""
     b, c, h, w = img.shape
     kernels.launch("pivk_backwarp_bwd_f32", "backwarp_bwd", img.device,
                    img.data_ptr(), flow.data_ptr(), gout.data_ptr(), g_img.data_ptr(),
-                   g_flow.data_ptr(), b, c, h, w, gout.shape[2], gout.shape[3], stride)
+                   g_flow.data_ptr(), out_of_window_counter(img.device).data_ptr(),
+                   b, c, h, w, gout.shape[2], gout.shape[3], stride)

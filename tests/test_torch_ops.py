@@ -432,6 +432,8 @@ def _card_grad_close(got: torch.Tensor, want: torch.Tensor) -> None:
 @pytest.mark.gpu
 @pytest.mark.parametrize("b,c,h,w,stride,mag", [
     (1, 64, 64, 96, 1, 4.0), (2, 5, 37, 53, 1, 30.0), (1, 64, 64, 96, 2, 4.0), (2, 7, 37, 53, 2, 30.0),
+    # the level-1 training shape: every tile in its window, and tiles out of it
+    (8, 64, 256, 256, 1, 8.0), (8, 64, 256, 256, 2, 30.0),
 ])
 def test_backwarp_bwd_kernel_matches_plain(cuda, b, c, h, w, stride, mag):
     g = torch.Generator(device=cuda).manual_seed(c + stride)
@@ -440,9 +442,12 @@ def test_backwarp_bwd_kernel_matches_plain(cuda, b, c, h, w, stride, mag):
     flow = ((torch.rand(b, 2, ho, wo, device=cuda, generator=g) * 2 - 1) * mag).requires_grad_()
     gout = torch.randn(b, c, ho, wo, device=cuda, generator=g)
     before = warp.bwd_launches
+    counter = warp.out_of_window_counter(flow.device)
+    counter.zero_()
     warp.backwarp(img, flow, stride).backward(gout)
     torch.cuda.synchronize()
     assert warp.bwd_launches == before + 1
+    assert int(counter.item()) == warp.out_of_window_tiles(flow.detach(), h, w, stride)
     want_img, want_flow = warp.backwarp_bwd_plain(img.detach(), flow.detach(), gout, stride)
     _card_grad_close(img.grad, want_img)
     _card_grad_close(flow.grad, want_flow)
