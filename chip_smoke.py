@@ -21,15 +21,18 @@ the script exits non-zero without the final line.
    with flows that point outside the frame; the two backward kernels also at
    the shapes of a 256^2 batch-8 training step; ``conv_chain`` at the piv v1
    level-1 M, S and R stacks of a 1024^2 pair, the 6-conv v2 stacks and odd
-   sizes; ``backwarp_bwd`` also with a smooth and a 30 px random flow at the
+   sizes (batch 2 at 123x77, off every tile edge, for the tensor-core
+   tiling); ``backwarp_bwd`` also with a smooth and a 30 px random flow at the
    level-1 training shape at both strides, its count of tiles that took the
    out-of-window path held to ``ops/warp.py:tile_windows`` in every case, and
    both of its paths required to run. Tolerance: atol 1e-5 for the warps;
    1e-5 * mean|f1*f2| for the
    cost volume (another summation order); 1e-5 * max|plain| for the backward
    kernels (atomics in a varying order, sums over 49 taps or C channels) and
-   for ``conv_chain`` (float32 sums over up to 1170 taps per layer in another
-   order than cuDNN's, through up to 6 layers).
+   for ``conv_chain`` (float32-accurate sums over up to 3474 taps per layer
+   in another order than cuDNN's, through up to 6 layers: 3xTF32 on the
+   tensor cores, whose dropped lo*lo term is below 2^-22 of a product;
+   single-pass TF32 would miss this tolerance).
 3. The slices end to end on synthetic particle-image pairs: ``estimate`` of
    piv v1, piv v2 and hui v2, with cuDNN convs and with the conv chain, at
    1024^2 b1, 256^2 b4 and 250x300 b1 (through the /32 resize). Each path is
@@ -46,7 +49,9 @@ the script exits non-zero without the final line.
    events each kernel at its level-1 shape beside its plain version, the one
    PyTorch call that computes the same function where there is one
    (``library_ms``; the port never calls it), and its bound from the bytes
-   and operations it needs.
+   and operations it needs; ``conv_chain`` at five stacks beside the cuDNN
+   chain, with its bound at the 3xTF32 rate (three TF32 products per
+   multiply-add, 495/3 TFLOP/s) and at the f32 CUDA-core rate.
 5. Training at 256^2 batch 8 on synthetic particle pairs: one train step
    through the kernels (the training path: the launch counts are set to 0
    just before it and read just after) and one through the plain ops from
@@ -88,6 +93,7 @@ import torch.nn.functional as F
 
 HBM_BYTES_PER_S = 3.35e12   # H100 SXM device memory rate
 F32_FLOPS_PER_S = 67e12     # H100 SXM float32 rate outside the tensor cores
+TF32_FLOPS_PER_S = 495e12   # H100 SXM dense TF32 tensor-core rate
 WARP_ATOL = 1e-5
 CORR_RTOL = 1e-5
 MODEL_ATOL, MODEL_RTOL = 2e-4, 1e-3
@@ -167,6 +173,7 @@ def chain_cases():
         ("v2 S level 6", [192, 192, 2], s_chain(6, 2), KLAST[6], True, 1, 32, 32),
         ("v2 S level 4 odd", [96, 96, 2], s_chain(4, 2), KLAST[4], True, 2, 35, 41),
         ("R level 6 odd", [1, 2, 192], r_chain(6), 3, False, 2, 37, 53),
+        ("v1 S level 3 odd", [64, 64, 2], s_chain(3, 1), KLAST[3], True, 2, 123, 77),
     ]
 
 
@@ -452,8 +459,8 @@ def pixel_grid(flow: torch.Tensor, h: int, w: int, stride: int = 1) -> torch.Ten
     return torch.stack([2 * xs / (w - 1) - 1, 2 * ys / (h - 1) - 1], dim=-1)
 
 
-def bound_ms(nbytes: float, flops: float):
-    t_mem, t_ops = nbytes / HBM_BYTES_PER_S * 1e3, flops / F32_FLOPS_PER_S * 1e3
+def bound_ms(nbytes: float, flops: float, flops_per_s: float = F32_FLOPS_PER_S):
+    t_mem, t_ops = nbytes / HBM_BYTES_PER_S * 1e3, flops / flops_per_s * 1e3
     return (t_mem, "bytes") if t_mem >= t_ops else (t_ops, "operations")
 
 
@@ -536,20 +543,29 @@ def time_all(dev, ops, models, card):
         shape=f"[{b},3,{h},{w}]",
         bound=bound_ms(4 * (3 + 3 + 2 + 1) * b * h * w, 27 * b * h * w))
     del img, img1, img2, flow, grid, flow_r, grid_r, flow2
-    # conv_chain at the piv v1 level-1 stacks of a 1024^2 pair (the S stack is the row), the
-    # 6-conv v2 S stack at level 2, each beside the cuDNN chain (its plain version)
+    # conv_chain at the piv v1 level-1 M, S and R stacks of a 1024^2 pair (the S stack is the
+    # row) and the 6-conv v2 M and S stacks at level 2, each beside the cuDNN chain (its plain
+    # version); the bound at the 3xTF32 rate (three TF32 products per multiply-add) and at the
+    # f32 CUDA-core rate of the kernel before the tensor cores
+    cases = []
     with torch.no_grad():
         for i, (name, parts_c, stack, last_k, last_linear, b, h, w) in enumerate(chain_cases()[:5]):
             parts, weights, biases = chain_stack(parts_c, stack, last_k, b, h, w, 40 + i, dev)
             ms = timer(lambda: chain.conv_chain(parts, weights, biases, last_linear), iters=10)
             plain_ms = timer(lambda: chain.conv_chain_plain(parts, weights, biases, last_linear), iters=10)
-            bound = bound_ms(*chain_work(parts_c, weights, b, h, w))
+            nbytes, flops = chain_work(parts_c, weights, b, h, w)
+            bound = bound_ms(nbytes, 3 * flops, TF32_FLOPS_PER_S)
+            bound_f32 = bound_ms(nbytes, flops)
             shape = f"[{b},{sum(parts_c)},{h},{w}] {name}"
+            cases.append(dict(shape=shape, ms=ms, plain_ms=plain_ms, bound_ms=bound[0],
+                              bound_f32_ms=bound_f32[0], flops=flops))
             if name == "v1 S level 1":
                 rows["conv_chain"] = dict(ms=ms, plain_ms=plain_ms, library_ms=None, shape=shape,
-                                          bound=bound)
-            log(f"  conv_chain     {shape:26s} {ms:.4f} ms  cuDNN chain {plain_ms:.4f} ms  bound "
-                f"{bound[0]:.4f} ms ({bound[1]}), {bound[0] / ms:.1%} of it  ({card})")
+                                          bound=bound, bound_f32_ms=bound_f32[0], cases=cases)
+            log(f"  conv_chain     {shape:26s} {ms:.4f} ms  cuDNN chain {plain_ms:.4f} ms "
+                f"(kernel/cuDNN {ms / plain_ms:.3f})  3xTF32 bound {bound[0]:.4f} ms ({bound[1]}), "
+                f"{bound[0] / ms:.1%} of it; f32 bound {bound_f32[0]:.4f} ms, {bound_f32[0] / ms:.1%} "
+                f"of it  ({card})")
             del parts, weights, biases
     for name, r in rows.items():
         lib = "null" if r["library_ms"] is None else f"{r['library_ms']:.4f}"
@@ -881,7 +897,8 @@ def main() -> int:
         launches_per_train_step=tr["launches"][name],
         launches_by_path={p: counts.get(name, 0) for p, counts in paths.items()},
         max_abs_err=errs[name], ms=r["ms"], plain_ms=r["plain_ms"], bound_ms=r["bound"][0],
-        bound_by=r["bound"][1], library_ms=r["library_ms"], **({"cases": r["cases"]} if "cases" in r else {}))
+        bound_by=r["bound"][1], library_ms=r["library_ms"],
+        **{k: r[k] for k in ("bound_f32_ms", "cases") if k in r})
         for name, r in rows.items()]
     if len(kernels) != len(sources) or any(k["launches"] == 0 for k in kernels):
         raise AssertionError(f"a kernel never launched on its path: {paths}")

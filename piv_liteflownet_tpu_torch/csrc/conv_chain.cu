@@ -1,41 +1,75 @@
-// A whole NetE conv stack in one launch, f32, NCHW.
+// A whole NetE conv stack in one launch, float32 accuracy.
 //
 //   x_0 = concat(parts)                       (never materialised)
 //   x_l = act_l(conv_l(x_{l-1}) + bias_l),    l = 1 .. n_layers
 //
 // Every conv is SAME, stride 1, k x k with k in {1, 3, 5, 7}; act_l is
-// LeakyReLU(0.1), except after the last conv when last_linear is set.
-// Replaces the TPU kernel piv_liteflownet_tpu/ops/pallas_conv.py:
-// conv_chain_pallas; its semantic reference is conv_chain_xla there, and the
-// port's plain version is ops/conv_chain.py:conv_chain_plain.
+// LeakyReLU(0.1), except after the last conv when last_linear is set. The
+// parts and the output are NCHW. Replaces the TPU kernel
+// piv_liteflownet_tpu/ops/pallas_conv.py:conv_chain_pallas; its semantic
+// reference is conv_chain_xla there, and the port's plain version is
+// ops/conv_chain.py:conv_chain_plain.
 //
-// Bound on an H100: operations. The piv v1 level-1 R stack of a 1024^2 pair
-// is 436,608 multiply-adds per pixel, 916 GFLOP, 13.7 ms at 67 TFLOP/s
-// (float32 on the CUDA cores); its input is 0.5 GB, 0.17 ms at 3.35 TB/s.
+// Bound on an H100 SXM (700 W): operations. Float32 accuracy on the tensor
+// cores takes three TF32 products per multiply-add (below), so the rate is
+// 495 / 3 = 165 TFLOP/s: the piv v1 level-1 S stack of a 1024^2 pair (245,056
+// multiply-adds per pixel, 514 GFLOP) takes at least 3.11 ms, the R stack
+// (916 GFLOP) 5.55 ms; their inputs are 0.5 GB, 0.17 ms at 3.35 TB/s.
 //
-// Design. The TPU kernel keeps each tile's whole chain on chip with a halo
-// of up to 8 pixels; on this card a 128-channel f32 intermediate of a
-// halo-8 16x16 tile alone would take 512 KB of shared memory, against 227 KB
-// per block. So the layers run in turn inside one cooperative launch: a
-// persistent grid (as many blocks as fit on the card at once) walks the
-// output tiles of a layer, then cooperative_groups' grid.sync() separates it
-// from the next. Intermediates ping-pong through two [B, <=128, H, W] scratch
-// buffers that the caller allocates; they are read with __ldcg (L2, not the
-// per-SM L1, which is not coherent across blocks within a launch). SAME
-// padding at every layer is a bounds check while a tile is staged, and the
-// first layer reads each part through its own pointer.
+// The layers run in turn inside one cooperative launch: a persistent grid
+// (as many blocks as fit on the card at once) walks the output tiles of a
+// layer, then cooperative_groups' grid.sync() separates it from the next.
+// (The TPU kernel keeps a tile's whole chain on chip; a 128-channel f32
+// intermediate of a halo-8 tile does not fit the 227 KB a block may take.)
+// Intermediates go through two scratch buffers the caller allocates, NHWC
+// with a pixel stride of cout rounded up to 4, so that every copy of 4
+// channels is 16 bytes and aligned. A buffer is written inside this launch
+// and re-read two layers later, and L1 is not coherent across blocks: every
+// read of the scratch bypasses L1 (cp.async.cg, __ldcg). Only the read-only
+// parts and weights may go through L1.
 //
-// A layer is a direct convolution with exact f32 FMAs (no TF32, no tensor
-// cores). A block of 256 threads computes 32 output columns x TH rows x
-// 8*G output channels, G = 1, 2 or 4 by the layer's width (TH = 32/G); each
-// thread holds 8 channels x 4 neighbouring columns in registers. For every
-// pass of 8 input channels the block stages the input tile with its halo and
-// the weight slice [ci][ky][kx][co] in shared memory; a thread then reads
-// each staged input row once as float4s, slides it over the k taps of the
-// row, and takes its 8 weights per tap as two broadcast float4 loads.
+// Layers with cout > 8 (every layer of the M, S and R stacks but the last
+// 2-channel conv of M and S) are implicit GEMMs on the tensor cores, with
+// mma.sync.aligned.m16n8k8.row.col.f32.tf32.tf32.f32 (CUTLASS's
+// SM80_16x8x8_F32TF32TF32F32_TN): M = a tile's 8 x 32 output pixels, N = BN
+// = 64 or 32 output channels (ops/conv_chain.py:layer_plan picks it and
+// passes it in), K = cin x k x k walked as (16-channel chunk, ky, kx); eight
+// warps, warp (wm, wn) on output rows 2wm, 2wm+1 (four m16 tiles) x BN/2
+// channels. Float32 accuracy with the 3xTF32 split (CUTLASS's
+// OpMultiplyAddFastF32): x = hi + lo, hi = cvt.rna.tf32(x), lo =
+// cvt.rna.tf32(x - hi), a.b ~ lo_a.hi_b + hi_a.lo_b + hi_a.hi_b; the dropped
+// lo.lo term is below 2^-22 of a product. The weights come split from the
+// packer (ops/conv_chain.py:tf32_split); each staged input chunk is split
+// once in shared memory (hi in place, lo beside it), as every element serves
+// up to k^2 taps of two warps. The tensor cores do not round an mma's sum
+// to nearest: each mma into one accumulator lost up to an ulp of it, toward
+// zero, and over the ~480 mma of an output that missed the 1e-5 tolerance
+// on the card. So the 6k mma of a step go into a fresh sum that is
+// added into the accumulator with an FADD; the two register sets (2 x 64
+// floats at BN 64) are why BN stops at 64. A two-stage cp.async ring
+// overlaps the loads of step s+1 with the products of step s, one
+// __syncthreads() per step; a step is one (chunk, ky): the weight slice
+// [kx][hi|lo][BN][16 ci] and, at ky = 0, the chunk's input tile with its
+// halo, [pixel][16 ci]. Rows of both are CS = 20 words apart, so that the
+// eight 16-byte ldmatrix rows of neighbouring pixels or channels fall in
+// distinct banks. Each staged chunk serves all k^2 taps as shifted windows.
+// SAME padding, the ragged edge and channels past cin use the zero-fill form
+// of cp.async (src-size 0). Layer 0 reads the NCHW parts with 4-byte copies,
+// later layers the NHWC scratch with 16-byte ones.
+//
+// Layers with cout <= 8 (1.3 % of the S stack's work) are direct
+// convolutions with exact f32 FMAs: 32 x 32 output pixels x cout (rounded up
+// to 2, 4 or 8) channels per block, 8 input channels per pass, each thread
+// 4 columns x all the channels.
+//
+// Build (nvcc -Xptxas -v, sm_90a, as chip_smoke.py prints it): 255 registers, 424
+// bytes of stack, 504 bytes of spill stores and 1376 of spill loads, 768
+// bytes of static shared memory; dynamic shared memory per layer_plan,
+// 143,040 bytes for a 3x3 layer with BN 64 (one block of 256 threads per SM).
 
 #include <cooperative_groups.h>
 #include <cuda_runtime.h>
+#include <stdint.h>
 
 namespace cg = cooperative_groups;
 
@@ -43,23 +77,32 @@ namespace {
 
 constexpr int MAX_PARTS = 3;
 constexpr int MAX_LAYERS = 8;
+constexpr int PLAN_FIELDS = 5;  // per layer: k, cout, bn, woff, boff
 constexpr int THREADS = 256;
-constexpr int CI_T = 8;   // input channels staged per pass
-constexpr int TW = 32;    // tile width in pixels
-constexpr int RX = 4;     // output columns per thread
-constexpr int RC = 8;     // output channels per thread
+constexpr size_t SMEM_BUDGET = 232448 - 1024;  // 227 KB, less room for static shared memory
 constexpr float SLOPE = 0.1f;
+// tensor-core path
+constexpr int MT_H = 8;       // output rows per tile (two per warp row)
+constexpr int MT_W = 32;      // output columns per tile
+constexpr int CK = 16;        // input channels per chunk
+constexpr int CS = CK + 4;    // staged words per pixel
+// FFMA path (cout <= 8)
+constexpr int CI_T = 8;       // input channels staged per pass
+constexpr int FT_H = 32;      // output rows per tile
+constexpr int TW = 32;        // output columns per tile
+constexpr int RX = 4;         // output columns per thread
+constexpr int FFMA_MAX_COUT = 8;  // output channels of the FFMA path, all in each thread
 
 struct ChainParams {
   const float* part[MAX_PARTS];
   int part_c[MAX_PARTS];
-  int n_parts;
   int n_layers;
   int k[MAX_LAYERS];
   int cin[MAX_LAYERS];
   int cout[MAX_LAYERS];
-  long long woff[MAX_LAYERS];  // layer l's weights [cin][k][k][cout] in wpack
-  long long boff[MAX_LAYERS];  // and its bias [cout]
+  int bn[MAX_LAYERS];    // channels per tile on the tensor-core path, 0 for the FFMA path
+  int woff[MAX_LAYERS];  // layer l's packed weights in wpack
+  int boff[MAX_LAYERS];  // and its bias [cout]
   const float* wpack;
   float* buf[2];
   float* out;
@@ -67,81 +110,329 @@ struct ChainParams {
   int last_linear;
 };
 
-// A layer's input: up to MAX_PARTS NCHW segments, concatenated over channels.
+// A layer's input: up to MAX_PARTS NCHW segments concatenated over channels
+// (stride 0), or one NHWC scratch buffer whose pixels are `stride` floats apart.
 struct Src {
   const float* ptr[MAX_PARTS];
   int c[MAX_PARTS];
-  int n;
+  int stride;
 };
 
-__host__ __device__ inline int channel_groups(int cout) {
-  return cout <= RC ? 1 : (cout <= 2 * RC ? 2 : 4);
+// A layer's output: NCHW (stride 0) or NHWC scratch.
+struct Dst {
+  float* ptr;
+  int stride;
+};
+
+__host__ __device__ inline int pixel_stride(int c) { return (c + 3) & ~3; }
+
+// two stages of the input chunk with its halo and one of its lo half; two of the weight slice
+__host__ inline size_t mma_smem_bytes(int k, int bn) {
+  const size_t a = (size_t)(MT_H + k - 1) * (MT_W + k - 1) * CS;
+  const size_t b = (size_t)k * 2 * bn * CS;
+  return (3 * a + 2 * b) * sizeof(float);
 }
 
-__host__ __device__ inline int tile_rows(int cout) {
-  return (THREADS / channel_groups(cout)) / (TW / RX);
+__host__ __device__ inline int ffma_row_stride(int k) { return (TW + k - 1 + 3) & ~3; }
+
+// output channels an FFMA thread computes: cout rounded up to 2, 4 or 8
+__host__ __device__ inline int ffma_channels(int cout) { return cout <= 2 ? 2 : cout <= 4 ? 4 : 8; }
+
+__host__ inline size_t ffma_smem_bytes(int k, int cout) {
+  return sizeof(float) * ((size_t)CI_T * (FT_H + k - 1) * ffma_row_stride(k) +
+                          (size_t)CI_T * k * k * ffma_channels(cout));
 }
 
-__host__ __device__ inline int row_stride(int k) { return (TW + k - 1 + 3) & ~3; }
-
-__host__ inline size_t layer_smem_bytes(int k, int cout) {
-  const int g = channel_groups(cout);
-  const int sh = tile_rows(cout) + k - 1;
-  return sizeof(float) * ((size_t)CI_T * sh * row_stride(k) + (size_t)CI_T * k * k * RC * g);
-}
-
-__host__ inline long long layer_tiles(int B, int H, int W, int cout) {
-  const int th = tile_rows(cout);
-  const int cob = RC * channel_groups(cout);
-  return (long long)B * ((H + th - 1) / th) * ((W + TW - 1) / TW) * ((cout + cob - 1) / cob);
+__host__ inline long long layer_tiles(int B, int H, int W, int cout, int bn) {
+  if (bn == 0) return (long long)B * ((H + FT_H - 1) / FT_H) * ((W + TW - 1) / TW);
+  return (long long)B * ((H + MT_H - 1) / MT_H) * ((W + MT_W - 1) / MT_W) * ((cout + bn - 1) / bn);
 }
 
 __device__ __forceinline__ float activate(float v, bool act) {
   return act && v < 0.f ? v * SLOPE : v;
 }
 
+__device__ __forceinline__ uint32_t smem_addr(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+}
+
+// 16 bytes through L2 only; the bytes past src_bytes (all 16 when it is 0) are zero-filled.
+__device__ __forceinline__ void cp_async16(uint32_t dst, const void* src, int src_bytes) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(dst), "l"(src), "r"(src_bytes));
+}
+
+// 4 bytes (the read-only parts only: .ca may cache in L1).
+__device__ __forceinline__ void cp_async4(uint32_t dst, const void* src, int src_bytes) {
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(dst), "l"(src), "r"(src_bytes));
+}
+
+__device__ __forceinline__ void cp_async_commit() { asm volatile("cp.async.commit_group;\n" ::); }
+
+__device__ __forceinline__ void cp_async_wait_all() { asm volatile("cp.async.wait_group 0;\n" ::: "memory"); }
+
+__device__ __forceinline__ uint32_t tf32_rna(float x) {
+  uint32_t r;
+  asm("cvt.rna.tf32.f32 %0, %1;\n" : "=r"(r) : "f"(x));
+  return r;
+}
+
+// Four 8x8 b16 matrices = one m16 x k8 tf32 A fragment: a0 (g, t), a1 (g+8, t), a2 (g, t+4), a3 (g+8, t+4).
+__device__ __forceinline__ void ldmatrix_x4(uint32_t addr, uint32_t (&r)[4]) {
+  asm volatile("ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0,%1,%2,%3}, [%4];\n"
+               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+               : "r"(addr));
+}
+
+// d += a * b on an m16n8k8 tile; b0 = (k t, n g), b1 = (k t+4, n g); d as c0..c3.
+__device__ __forceinline__ void mma_tf32(float (&d)[4], const uint32_t (&a)[4], uint32_t b0, uint32_t b1) {
+  asm(
+      "mma.sync.aligned.m16n8k8.row.col.f32.tf32.tf32.f32 {%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, "
+      "{%0,%1,%2,%3};\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
+// One 16-channel chunk of the input tile (with its halo) into [pixel][CS] shared memory.
 template <int K>
-__device__ void conv_layer(const Src& src, int cin, const float* __restrict__ w,
-                           const float* __restrict__ bias, int cout, float* dst,
-                           int B, int H, int W, bool act, float* smem) {
+__device__ __forceinline__ void stage_input(const Src& src, int cin, int c0, int b, int y0, int x0, int H, int W,
+                                            float* dst) {
+  constexpr int P = K / 2, SH = MT_H + K - 1, SW = MT_W + K - 1;
+  const int tid = threadIdx.x;
+  if (src.stride) {
+    const float* base = src.ptr[0];
+    for (int i = tid; i < SH * SW * 4; i += THREADS) {
+      const int pix = i >> 2, q = i & 3;
+      const int rr = pix / SW, sx = pix - rr * SW;
+      const int gy = y0 - P + rr, gx = x0 - P + sx, ch = c0 + 4 * q;
+      const bool in = gy >= 0 && gy < H && gx >= 0 && gx < W;
+      const int bytes = in ? max(0, min(16, 4 * (cin - ch))) : 0;
+      const float* g = bytes ? base + (((size_t)b * H + gy) * W + gx) * src.stride + ch : base;
+      cp_async16(smem_addr(dst + pix * CS + 4 * q), g, bytes);
+    }
+    return;
+  }
+  const size_t plane = (size_t)H * W;
+  for (int p = tid; p < CK * SW; p += THREADS) {
+    const int cc = p / SW, sx = p - cc * SW;
+    const int gx = x0 - P + sx;
+    int ci = c0 + cc, s = 0;
+    bool ok = ci < cin && gx >= 0 && gx < W;
+    const float* base = src.ptr[0];
+    if (ci < cin) {
+      while (ci >= src.c[s]) ci -= src.c[s++];
+      base = src.ptr[s] + ((size_t)b * src.c[s] + ci) * plane + gx;
+    }
+    for (int rr = 0; rr < SH; ++rr) {
+      const int gy = y0 - P + rr;
+      const bool in = ok && gy >= 0 && gy < H;
+      cp_async4(smem_addr(dst + (rr * SW + sx) * CS + cc), in ? base + (size_t)gy * W : src.ptr[0], in ? 4 : 0);
+    }
+  }
+}
+
+// One (chunk, ky) slice of the packed weights, [kx][hi|lo][BN][16 ci] contiguous in global
+// memory, into the same order in shared memory with CS words per row.
+template <int K, int BN>
+__device__ __forceinline__ void stage_weights(const float* __restrict__ src, float* dst) {
+  for (int i = threadIdx.x; i < K * 2 * BN * 4; i += THREADS)
+    cp_async16(smem_addr(dst + (i >> 2) * CS + 4 * (i & 3)), src + 4 * (size_t)i, 16);
+}
+
+// The staged chunk split in place: hi = cvt.rna.tf32(x) over x, lo = cvt.rna.tf32(x - hi) into `lo`.
+__device__ __forceinline__ void split_chunk(float* a, float* lo, int pixels) {
+  for (int i = threadIdx.x; i < pixels * 4; i += THREADS) {
+    const int o = (i >> 2) * CS + 4 * (i & 3);
+    float4 v = *reinterpret_cast<float4*>(a + o), r;
+    float* x = &v.x;
+    float* y = &r.x;
+#pragma unroll
+    for (int j = 0; j < 4; ++j) {
+      const float h = __uint_as_float(tf32_rna(x[j]));
+      y[j] = __uint_as_float(tf32_rna(x[j] - h));
+      x[j] = h;
+    }
+    *reinterpret_cast<float4*>(a + o) = v;
+    *reinterpret_cast<float4*>(lo + o) = r;
+  }
+}
+
+template <int K, int BN>
+__device__ void mma_layer(const Src& src, int cin, const float* __restrict__ w, const float* __restrict__ bias,
+                          int cout, const Dst dst, int B, int H, int W, bool act, float* smem) {
+  constexpr int WN = 2;                   // warp columns; each warp takes BN / 2 channels
+  constexpr int WM = THREADS / 32 / WN;   // warp rows; each warp takes MI m tiles of 16 pixels
+  constexpr int MI = 2 * MT_H / WM;
+  constexpr int NT = BN / (8 * WN);       // n tiles of 8 channels per warp
+  constexpr int SH = MT_H + K - 1, SW = MT_W + K - 1;
+  constexpr int a_words = SH * SW * CS;
+  constexpr int b_words = K * 2 * BN * CS;
+  constexpr int stage_floats = K * 2 * BN * CK;
+  float* const as = smem;                  // two stages of the chunk (raw, then hi)
+  float* const alo = smem + 2 * a_words;   // the current chunk's lo
+  float* const bs = smem + 3 * a_words;    // two stages of the weight slice
+  const int nchunks = (cin + CK - 1) / CK;
+  const int steps = nchunks * K;
+  const int tiles_n = (cout + BN - 1) / BN;
+  const int tiles_x = (W + MT_W - 1) / MT_W;
+  const int tiles_y = (H + MT_H - 1) / MT_H;
+  const long long ntiles = (long long)B * tiles_y * tiles_x * tiles_n;
+
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const int wm = warp / WN, wn = warp % WN;  // output rows wm * MI / 2 ..; channels wn * BN / 2 ..
+  const int g = lane >> 2, t = lane & 3;
+  // ldmatrix rows of this lane: in the A tile of m tile mi (row wm * MI / 2 + mi / 2, columns
+  // 16 (mi % 2) ..), pixel lane & 15 at channels 4 (lane >> 4) ..; in the B tile of n tile nt,
+  // channel 8 nt + (lane & 7) of plane lane >> 4 (hi, lo) at input channels 4 ((lane >> 3) & 1) ..
+  int a_off[MI];
+#pragma unroll
+  for (int mi = 0; mi < MI; ++mi)
+    a_off[mi] = ((wm * MI / 2 + (mi >> 1)) * SW + 16 * (mi & 1) + (lane & 15)) * CS + 4 * (lane >> 4);
+  const int b_off = ((lane >> 4) * BN + wn * (BN / WN) + (lane & 7)) * CS + 4 * ((lane >> 3) & 1);
+
+  for (long long tile = blockIdx.x; tile < ntiles; tile += gridDim.x) {
+    // channel tiles vary fastest, so blocks that share an input tile run together
+    long long r = tile;
+    const int nb = (int)(r % tiles_n);
+    r /= tiles_n;
+    const int bx = (int)(r % tiles_x);
+    r /= tiles_x;
+    const int by = (int)(r % tiles_y);
+    const int b = (int)(r / tiles_y);
+    const int x0 = bx * MT_W, y0 = by * MT_H;
+    const float* wt = w + (size_t)nb * steps * stage_floats;
+
+    float acc[MI][NT][4];
+#pragma unroll
+    for (int mi = 0; mi < MI; ++mi)
+#pragma unroll
+      for (int nt = 0; nt < NT; ++nt)
+#pragma unroll
+        for (int j = 0; j < 4; ++j) acc[mi][nt][j] = 0.f;
+
+    __syncthreads();  // the previous tile's last step has finished with the staging buffers
+    stage_input<K>(src, cin, 0, b, y0, x0, H, W, as);
+    stage_weights<K, BN>(wt, bs);
+    cp_async_commit();
+    for (int s = 0; s < steps; ++s) {
+      const int c = s / K, ky = s - c * K;
+      float* const a = as + (c & 1) * a_words;
+      cp_async_wait_all();
+      __syncthreads();  // step s is staged everywhere; step s-1's buffers are free
+      if (s + 1 < steps) {
+        if (ky == K - 1) stage_input<K>(src, cin, (c + 1) * CK, b, y0, x0, H, W, as + ((c + 1) & 1) * a_words);
+        stage_weights<K, BN>(wt + (size_t)(s + 1) * stage_floats, bs + ((s + 1) & 1) * b_words);
+        cp_async_commit();
+      }
+      if (ky == 0) {  // a new chunk: split it once for all taps and warps
+        split_chunk(a, alo, SH * SW);
+        __syncthreads();
+      }
+      const uint32_t ah_base = smem_addr(a) + 4u * (uint32_t)(ky * SW * CS);
+      const uint32_t al_base = smem_addr(alo) + 4u * (uint32_t)(ky * SW * CS);
+      const uint32_t b_base = smem_addr(bs + (s & 1) * b_words) + 4u * (uint32_t)b_off;
+      // The tensor cores do not round their sums to nearest: the step's products (k taps x 16
+      // channels, 6 k mma per fragment) go into a fresh sum, added into acc with an FADD.
+      float part[MI][NT][4];
+#pragma unroll
+      for (int mi = 0; mi < MI; ++mi)
+#pragma unroll
+        for (int nt = 0; nt < NT; ++nt)
+#pragma unroll
+          for (int j = 0; j < 4; ++j) part[mi][nt][j] = 0.f;
+#pragma unroll
+      for (int kx = 0; kx < K; ++kx)
+#pragma unroll
+        for (int k8 = 0; k8 < 2; ++k8) {
+          uint32_t ah[MI][4], al[MI][4];
+#pragma unroll
+          for (int mi = 0; mi < MI; ++mi) {
+            const uint32_t o = 4u * (uint32_t)(a_off[mi] + kx * CS + 8 * k8);
+            ldmatrix_x4(ah_base + o, ah[mi]);
+            ldmatrix_x4(al_base + o, al[mi]);
+          }
+#pragma unroll
+          for (int nt = 0; nt < NT; ++nt) {
+            uint32_t bf[4];  // b0, b1 of hi, then of lo
+            ldmatrix_x4(b_base + 4u * (uint32_t)((2 * kx * BN + 8 * nt) * CS + 8 * k8), bf);
+#pragma unroll
+            for (int mi = 0; mi < MI; ++mi) mma_tf32(part[mi][nt], al[mi], bf[0], bf[1]);
+#pragma unroll
+            for (int mi = 0; mi < MI; ++mi) mma_tf32(part[mi][nt], ah[mi], bf[2], bf[3]);
+#pragma unroll
+            for (int mi = 0; mi < MI; ++mi) mma_tf32(part[mi][nt], ah[mi], bf[0], bf[1]);
+          }
+        }
+#pragma unroll
+      for (int mi = 0; mi < MI; ++mi)
+#pragma unroll
+        for (int nt = 0; nt < NT; ++nt)
+#pragma unroll
+          for (int j = 0; j < 4; ++j) acc[mi][nt][j] += part[mi][nt][j];
+    }
+
+    // c0, c1 = (pixel g, channels 2t, 2t+1); c2, c3 = (pixel g + 8, the same channels)
+#pragma unroll
+    for (int nt = 0; nt < NT; ++nt) {
+      const int n = nb * BN + wn * (BN / WN) + 8 * nt + 2 * t;
+      const float bias0 = n < cout ? __ldg(bias + n) : 0.f;
+      const float bias1 = n + 1 < cout ? __ldg(bias + n + 1) : 0.f;
+#pragma unroll
+      for (int mi = 0; mi < MI; ++mi)
+#pragma unroll
+        for (int h = 0; h < 2; ++h) {
+          const int y = y0 + wm * MI / 2 + (mi >> 1);
+          const int x = x0 + 16 * (mi & 1) + g + 8 * h;
+          if (y >= H || x >= W || n >= cout) continue;
+          const float v0 = activate(acc[mi][nt][2 * h] + bias0, act);
+          const float v1 = activate(acc[mi][nt][2 * h + 1] + bias1, act);
+          if (dst.stride) {
+            float* o = dst.ptr + (((size_t)b * H + y) * W + x) * dst.stride + n;
+            if (n + 1 < cout) *reinterpret_cast<float2*>(o) = make_float2(v0, v1);
+            else o[0] = v0;
+          } else {
+            float* o = dst.ptr + (((size_t)b * cout + n) * H + y) * W + x;
+            o[0] = v0;
+            if (n + 1 < cout) o[(size_t)H * W] = v1;
+          }
+        }
+    }
+  }
+}
+
+// Direct convolution with exact f32 FMAs for cout <= 8. A block of 256 threads computes
+// 32 output columns x 32 rows x RC channels (cout rounded up to 2, 4 or 8); for every pass
+// of 8 input channels it stages the input tile with its halo and the weight slice
+// [ci][ky][kx][co] in shared memory; a thread reads each staged input row once as float4s,
+// slides it over the k taps of the row, and takes its RC weights per tap as broadcast loads.
+template <int K, int RC>
+__device__ void ffma_layer(const Src& src, int cin, const float* __restrict__ w, const float* __restrict__ bias,
+                           int cout, const Dst dst, int B, int H, int W, bool act, float* smem) {
   constexpr int P = K / 2;
   constexpr int SW = TW + K - 1;            // staged columns
   constexpr int RS = (SW + 3) & ~3;         // their row stride, float4-aligned
+  constexpr int SH = FT_H + K - 1;          // staged rows
   constexpr int NV = (RX + K - 1 + 3) / 4;  // float4s a thread reads per staged row
-  __shared__ const float* s_base[CI_T];     // channel plane of each staged channel
+  __shared__ const float* s_base[CI_T];     // the first element of each staged channel's image
 
-  const int gco = channel_groups(cout);
-  const int gpx = THREADS / gco;
-  const int th = tile_rows(cout);
-  const int cob = RC * gco;
-  const int sh = th + K - 1;
   float* s_in = smem;
-  float* s_w = smem + CI_T * sh * RS;
-
+  float* s_w = smem + CI_T * SH * RS;
   const int tid = threadIdx.x;
-  const int grp = tid / gpx;               // this thread's group of RC output channels
-  const int pg = tid - grp * gpx;
-  const int ty = pg / (TW / RX);
-  const int tx = (pg - ty * (TW / RX)) * RX;
-
+  const int ty = tid / (TW / RX);
+  const int tx = (tid - ty * (TW / RX)) * RX;
   const int tiles_x = (W + TW - 1) / TW;
-  const int tiles_y = (H + th - 1) / th;
-  const int tiles_c = (cout + cob - 1) / cob;
-  const long long ntiles = (long long)B * tiles_y * tiles_x * tiles_c;
+  const int tiles_y = (H + FT_H - 1) / FT_H;
+  const long long ntiles = (long long)B * tiles_y * tiles_x;
   const size_t plane = (size_t)H * W;
+  const int pstride = src.stride;
 
   for (long long t = blockIdx.x; t < ntiles; t += gridDim.x) {
-    // channel tiles vary fastest, so blocks that share an input tile run together
     long long r = t;
-    const int tc = (int)(r % tiles_c);
-    r /= tiles_c;
     const int bx = (int)(r % tiles_x);
     r /= tiles_x;
     const int by = (int)(r % tiles_y);
     const int b = (int)(r / tiles_y);
     const int x0 = bx * TW;
-    const int y0 = by * th;
-    const int co0 = tc * cob;
+    const int y0 = by * FT_H;
 
     float acc[RC][RX];
 #pragma unroll
@@ -154,34 +445,51 @@ __device__ void conv_layer(const Src& src, int cin, const float* __restrict__ w,
       __syncthreads();  // the previous pass has finished with the staged tiles
       if (tid < cn) {
         int ci = ci0 + tid, s = 0;
-        while (ci >= src.c[s]) ci -= src.c[s++];
-        s_base[tid] = src.ptr[s] + ((size_t)b * src.c[s] + ci) * plane;
+        if (src.stride) {
+          s_base[tid] = src.ptr[0] + (size_t)b * plane * src.stride + ci;
+        } else {
+          while (ci >= src.c[s]) ci -= src.c[s++];
+          s_base[tid] = src.ptr[s] + ((size_t)b * src.c[s] + ci) * plane;
+        }
       }
       __syncthreads();
-      for (int i = tid; i < cn * sh * SW; i += THREADS) {
-        const int cc = i / (sh * SW);
-        const int rem = i - cc * sh * SW;
-        const int rr = rem / SW;
-        const int s = rem - rr * SW;
-        const int gy = y0 - P + rr;
-        const int gx = x0 - P + s;
-        float v = 0.f;
-        if (gy >= 0 && gy < H && gx >= 0 && gx < W) v = __ldcg(s_base[cc] + (size_t)gy * W + gx);
-        s_in[(cc * sh + rr) * RS + s] = v;
+      if (src.stride) {  // NHWC scratch: 4 channels of a pixel per 16-byte load, those past cin zeroed
+        for (int i = tid; i < SH * SW * 2; i += THREADS) {
+          const int q = i & 1, pix = i >> 1;
+          const int rr = pix / SW, sx = pix - rr * SW;
+          const int gy = y0 - P + rr, gx = x0 - P + sx;
+          float4 v = make_float4(0.f, 0.f, 0.f, 0.f);
+          if (4 * q < cn && gy >= 0 && gy < H && gx >= 0 && gx < W)
+            v = __ldcg(reinterpret_cast<const float4*>(s_base[0] + ((size_t)gy * W + gx) * pstride + 4 * q));
+          const float f[4] = {v.x, v.y, v.z, v.w};
+#pragma unroll
+          for (int j = 0; j < 4; ++j) s_in[((4 * q + j) * SH + rr) * RS + sx] = 4 * q + j < cn ? f[j] : 0.f;
+        }
+      } else {
+        for (int i = tid; i < cn * SH * SW; i += THREADS) {
+          const int cc = i / (SH * SW);
+          const int rem = i - cc * SH * SW;
+          const int rr = rem / SW;
+          const int s = rem - rr * SW;
+          const int gy = y0 - P + rr;
+          const int gx = x0 - P + s;
+          float v = 0.f;
+          if (gy >= 0 && gy < H && gx >= 0 && gx < W) v = __ldcg(s_base[cc] + (size_t)gy * W + gx);
+          s_in[(cc * SH + rr) * RS + s] = v;
+        }
       }
       const float* wsrc = w + (size_t)ci0 * K * K * cout;
-      for (int i = tid; i < cn * K * K * cob; i += THREADS) {
-        const int co = i % cob;
-        const int rest = i / cob;  // (ci - ci0) * K * K + ky * K + kx
-        const int gc = co0 + co;
-        s_w[i] = gc < cout ? __ldg(wsrc + (size_t)rest * cout + gc) : 0.f;
+      for (int i = tid; i < cn * K * K * RC; i += THREADS) {
+        const int co = i % RC;
+        const int rest = i / RC;  // (ci - ci0) * K * K + ky * K + kx
+        s_w[i] = co < cout ? __ldg(wsrc + (size_t)rest * cout + co) : 0.f;
       }
       __syncthreads();
 
       for (int cc = 0; cc < cn; ++cc) {
 #pragma unroll
         for (int ky = 0; ky < K; ++ky) {
-          const float4* row = reinterpret_cast<const float4*>(s_in + (cc * sh + ty + ky) * RS + tx);
+          const float4* row = reinterpret_cast<const float4*>(s_in + (cc * SH + ty + ky) * RS + tx);
           float v[NV * 4];
 #pragma unroll
           for (int q = 0; q < NV; ++q) {
@@ -191,12 +499,16 @@ __device__ void conv_layer(const Src& src, int cin, const float* __restrict__ w,
             v[4 * q + 2] = f.z;
             v[4 * q + 3] = f.w;
           }
-          const float* wrow = s_w + (cc * K + ky) * K * cob + grp * RC;
+          const float* wrow = s_w + (cc * K + ky) * K * RC;
 #pragma unroll
           for (int kx = 0; kx < K; ++kx) {
-            const float4 wa = *reinterpret_cast<const float4*>(wrow + kx * cob);
-            const float4 wb = *reinterpret_cast<const float4*>(wrow + kx * cob + 4);
-            const float wv[RC] = {wa.x, wa.y, wa.z, wa.w, wb.x, wb.y, wb.z, wb.w};
+            float wv[RC];
+#pragma unroll
+            for (int q = 0; q < RC; q += 2) {
+              const float2 f = *reinterpret_cast<const float2*>(wrow + kx * RC + q);
+              wv[q] = f.x;
+              wv[q + 1] = f.y;
+            }
 #pragma unroll
             for (int c = 0; c < RC; ++c)
 #pragma unroll
@@ -209,101 +521,124 @@ __device__ void conv_layer(const Src& src, int cin, const float* __restrict__ w,
     const int y = y0 + ty;
     const int x = x0 + tx;
     if (y >= H || x >= W) continue;
-    const bool vec = (W & 3) == 0 && x + RX <= W;
 #pragma unroll
     for (int c = 0; c < RC; ++c) {
-      const int co = co0 + grp * RC + c;
-      if (co >= cout) break;
-      const float bv = __ldg(bias + co);
-      float* o = dst + ((size_t)b * cout + co) * plane + (size_t)y * W + x;
-      if (vec) {
-        *reinterpret_cast<float4*>(o) =
-            make_float4(activate(acc[c][0] + bv, act), activate(acc[c][1] + bv, act),
-                        activate(acc[c][2] + bv, act), activate(acc[c][3] + bv, act));
-      } else {
+      if (c >= cout) break;
+      const float bv = __ldg(bias + c);
+      if (dst.stride) {
+        float* o = dst.ptr + (((size_t)b * H + y) * W + x) * dst.stride + c;
 #pragma unroll
         for (int j = 0; j < RX; ++j)
-          if (x + j < W) o[j] = activate(acc[c][j] + bv, act);
+          if (x + j < W) o[(size_t)j * dst.stride] = activate(acc[c][j] + bv, act);
+      } else {
+        float* o = dst.ptr + ((size_t)b * cout + c) * plane + (size_t)y * W + x;
+        if ((W & 3) == 0 && x + RX <= W) {
+          *reinterpret_cast<float4*>(o) =
+              make_float4(activate(acc[c][0] + bv, act), activate(acc[c][1] + bv, act),
+                          activate(acc[c][2] + bv, act), activate(acc[c][3] + bv, act));
+        } else {
+#pragma unroll
+          for (int j = 0; j < RX; ++j)
+            if (x + j < W) o[j] = activate(acc[c][j] + bv, act);
+        }
       }
     }
   }
 }
 
-__global__ void __launch_bounds__(THREADS, 2) conv_chain_kernel(ChainParams p) {
+__global__ void __launch_bounds__(THREADS, 1) conv_chain_kernel(ChainParams p) {
   extern __shared__ float4 smem4[];
   float* smem = reinterpret_cast<float*>(smem4);
   cg::grid_group grid = cg::this_grid();
   for (int l = 0; l < p.n_layers; ++l) {
     Src src;
     if (l == 0) {
-      src.n = p.n_parts;
+      src.stride = 0;
 #pragma unroll
       for (int i = 0; i < MAX_PARTS; ++i) {
         src.ptr[i] = p.part[i];
         src.c[i] = p.part_c[i];
       }
     } else {
-      src.n = 1;
+      src.stride = pixel_stride(p.cin[l]);
       src.ptr[0] = p.buf[(l - 1) & 1];
       src.c[0] = p.cin[l];
     }
-    float* dst = l == p.n_layers - 1 ? p.out : p.buf[l & 1];
-    const bool act = l < p.n_layers - 1 || !p.last_linear;
+    const bool last = l == p.n_layers - 1;
+    const Dst dst = last ? Dst{p.out, 0} : Dst{p.buf[l & 1], pixel_stride(p.cout[l])};
+    const bool act = !last || !p.last_linear;
     const float* w = p.wpack + p.woff[l];
     const float* bias = p.wpack + p.boff[l];
-    switch (p.k[l]) {
-      case 1: conv_layer<1>(src, p.cin[l], w, bias, p.cout[l], dst, p.B, p.H, p.W, act, smem); break;
-      case 3: conv_layer<3>(src, p.cin[l], w, bias, p.cout[l], dst, p.B, p.H, p.W, act, smem); break;
-      case 5: conv_layer<5>(src, p.cin[l], w, bias, p.cout[l], dst, p.B, p.H, p.W, act, smem); break;
-      default: conv_layer<7>(src, p.cin[l], w, bias, p.cout[l], dst, p.B, p.H, p.W, act, smem); break;
+    const int cin = p.cin[l], cout = p.cout[l];
+    const int k = p.k[l];
+    if (p.bn[l] == 0) {
+      const int rc = ffma_channels(cout);
+      if (k == 1) {
+        if (rc == 2) ffma_layer<1, 2>(src, cin, w, bias, cout, dst, p.B, p.H, p.W, act, smem);
+        else if (rc == 4) ffma_layer<1, 4>(src, cin, w, bias, cout, dst, p.B, p.H, p.W, act, smem);
+        else ffma_layer<1, 8>(src, cin, w, bias, cout, dst, p.B, p.H, p.W, act, smem);
+      } else if (k == 3) {
+        if (rc == 2) ffma_layer<3, 2>(src, cin, w, bias, cout, dst, p.B, p.H, p.W, act, smem);
+        else if (rc == 4) ffma_layer<3, 4>(src, cin, w, bias, cout, dst, p.B, p.H, p.W, act, smem);
+        else ffma_layer<3, 8>(src, cin, w, bias, cout, dst, p.B, p.H, p.W, act, smem);
+      } else if (k == 5) {
+        if (rc == 2) ffma_layer<5, 2>(src, cin, w, bias, cout, dst, p.B, p.H, p.W, act, smem);
+        else if (rc == 4) ffma_layer<5, 4>(src, cin, w, bias, cout, dst, p.B, p.H, p.W, act, smem);
+        else ffma_layer<5, 8>(src, cin, w, bias, cout, dst, p.B, p.H, p.W, act, smem);
+      } else {
+        if (rc == 2) ffma_layer<7, 2>(src, cin, w, bias, cout, dst, p.B, p.H, p.W, act, smem);
+        else if (rc == 4) ffma_layer<7, 4>(src, cin, w, bias, cout, dst, p.B, p.H, p.W, act, smem);
+        else ffma_layer<7, 8>(src, cin, w, bias, cout, dst, p.B, p.H, p.W, act, smem);
+      }
+    } else if (p.bn[l] == 64) {
+      if (k == 1) mma_layer<1, 64>(src, cin, w, bias, cout, dst, p.B, p.H, p.W, act, smem);
+      else if (k == 3) mma_layer<3, 64>(src, cin, w, bias, cout, dst, p.B, p.H, p.W, act, smem);
+      else mma_layer<5, 64>(src, cin, w, bias, cout, dst, p.B, p.H, p.W, act, smem);
+    } else {
+      if (k == 1) mma_layer<1, 32>(src, cin, w, bias, cout, dst, p.B, p.H, p.W, act, smem);
+      else if (k == 3) mma_layer<3, 32>(src, cin, w, bias, cout, dst, p.B, p.H, p.W, act, smem);
+      else if (k == 5) mma_layer<5, 32>(src, cin, w, bias, cout, dst, p.B, p.H, p.W, act, smem);
+      else mma_layer<7, 32>(src, cin, w, bias, cout, dst, p.B, p.H, p.W, act, smem);
     }
     if (l + 1 < p.n_layers) grid.sync();  // layer l is written everywhere before l+1 reads it
   }
 }
 
-}  // namespace
-
-// parts: host array of n_parts device pointers; part_c: their channel counts;
-// ks, couts: host arrays of n_layers kernel sizes and output widths. wpack
-// holds, per layer, weights [cin][k][k][cout] then bias [cout]. buf0/buf1:
-// scratch of B * max(couts[:-1]) * H * W floats each (unused for one layer).
-extern "C" int pivk_conv_chain_f32(const void* parts, const void* part_c, int n_parts,
-                                   const void* ks, const void* couts, int n_layers,
-                                   const void* wpack, void* buf0, void* buf1, void* out,
-                                   int B, int H, int W, int last_linear, int device,
-                                   void* stream) {
-  if (n_parts < 1 || n_parts > MAX_PARTS || n_layers < 1 || n_layers > MAX_LAYERS)
-    return (int)cudaErrorInvalidValue;
-  cudaError_t err = cudaSetDevice(device);
-  if (err != cudaSuccess) return (int)err;
+int launch_chain(const void* parts, const void* part_c, int n_parts, const int* plan, int n_layers,
+                 const void* wpack, void* buf0, void* buf1, void* out, int B, int H, int W, int last_linear,
+                 int device, cudaStream_t stream) {
   ChainParams p = {};
   const void* const* part_ptrs = (const void* const*)parts;
   const int* pc = (const int*)part_c;
-  const int* k = (const int*)ks;
-  const int* co = (const int*)couts;
   int cin = 0;
   for (int i = 0; i < n_parts; ++i) {
     p.part[i] = (const float*)part_ptrs[i];
     p.part_c[i] = pc[i];
     cin += pc[i];
   }
-  p.n_parts = n_parts;
   p.n_layers = n_layers;
-  long long off = 0, max_tiles = 1;
+  long long max_tiles = 1;
   size_t smem = 0;
   for (int l = 0; l < n_layers; ++l) {
-    if (k[l] != 1 && k[l] != 3 && k[l] != 5 && k[l] != 7) return (int)cudaErrorInvalidValue;
-    p.k[l] = k[l];
+    const int* f = plan + PLAN_FIELDS * l;
+    const int k = f[0], cout = f[1], bn = f[2];
+    if (k != 1 && k != 3 && k != 5 && k != 7) return (int)cudaErrorInvalidValue;
+    // the tile widths instantiated: those layer_plan picks for each k
+    const bool mma_ok = (bn == 64 && k <= 5) || bn == 32;
+    if (bn == 0 ? cout > FFMA_MAX_COUT : !mma_ok || cout <= FFMA_MAX_COUT)
+      return (int)cudaErrorInvalidValue;
+    if (cout < 1 || f[3] < 0 || f[4] < 0 || (bn && f[3] % 4)) return (int)cudaErrorInvalidValue;
+    p.k[l] = k;
     p.cin[l] = cin;
-    p.cout[l] = co[l];
-    p.woff[l] = off;
-    off += (long long)cin * k[l] * k[l] * co[l];
-    p.boff[l] = off;
-    off += co[l];
-    cin = co[l];
-    const size_t bytes = layer_smem_bytes(k[l], co[l]);
+    p.cout[l] = cout;
+    p.bn[l] = bn;
+    p.woff[l] = f[3];
+    p.boff[l] = f[4];
+    cin = cout;
+    const size_t bytes = bn ? mma_smem_bytes(k, bn) : ffma_smem_bytes(k, cout);
+    if (bytes > SMEM_BUDGET) return (int)cudaErrorInvalidValue;
     smem = bytes > smem ? bytes : smem;
-    const long long tiles = layer_tiles(B, H, W, co[l]);
+    const long long tiles = layer_tiles(B, H, W, cout, bn);
     max_tiles = tiles > max_tiles ? tiles : max_tiles;
   }
   p.wpack = (const float*)wpack;
@@ -315,7 +650,8 @@ extern "C" int pivk_conv_chain_f32(const void* parts, const void* part_c, int n_
   p.W = W;
   p.last_linear = last_linear;
 
-  err = cudaFuncSetAttribute(conv_chain_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  cudaError_t err =
+      cudaFuncSetAttribute(conv_chain_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return (int)err;
   int per_sm = 0, sms = 0;
   err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, conv_chain_kernel, THREADS, smem);
@@ -326,8 +662,32 @@ extern "C" int pivk_conv_chain_f32(const void* parts, const void* part_c, int n_
   const long long fit = (long long)per_sm * sms;
   const dim3 grid((unsigned)(max_tiles < fit ? max_tiles : fit));
   void* args[] = {&p};
-  err = cudaLaunchCooperativeKernel((const void*)conv_chain_kernel, grid, dim3(THREADS), args, smem,
-                                    (cudaStream_t)stream);
+  err = cudaLaunchCooperativeKernel((const void*)conv_chain_kernel, grid, dim3(THREADS), args, smem, stream);
   if (err != cudaSuccess) return (int)err;
   return (int)cudaGetLastError();
+}
+
+}  // namespace
+
+// parts: host array of n_parts device pointers (NCHW); part_c: their channel counts. plan:
+// host array of n_layers x 5 ints, per layer (k, cout, bn, woff, boff) from
+// ops/conv_chain.py:layer_plan: bn 0 takes the FFMA path (weights [cin][k][k][cout] at
+// woff), else the tensor-core path with BN = bn (weights [cout/bn][chunk][ky][kx][hi|lo][bn]
+// [16] at woff, cin padded to 16 and cout to bn with zeros); the bias [cout] at boff.
+// buf0/buf1: NHWC scratch of B * H * W * max((cout + 3) & ~3 over couts[:-1]) floats each.
+// The caller's current device is restored on return.
+extern "C" int pivk_conv_chain_f32(const void* parts, const void* part_c, int n_parts, const void* plan,
+                                   int n_layers, const void* wpack, void* buf0, void* buf1, void* out, int B,
+                                   int H, int W, int last_linear, int device, void* stream) {
+  if (n_parts < 1 || n_parts > MAX_PARTS || n_layers < 1 || n_layers > MAX_LAYERS)
+    return (int)cudaErrorInvalidValue;
+  int caller = 0;
+  cudaError_t err = cudaGetDevice(&caller);
+  if (err != cudaSuccess) return (int)err;
+  err = cudaSetDevice(device);
+  if (err != cudaSuccess) return (int)err;
+  const int rc = launch_chain(parts, part_c, n_parts, (const int*)plan, n_layers, wpack, buf0, buf1, out, B, H,
+                              W, last_linear, device, (cudaStream_t)stream);
+  err = cudaSetDevice(caller);
+  return rc != 0 ? rc : (int)err;
 }

@@ -40,7 +40,7 @@ SIGNATURES = {
     "pivk_rgb_warp_norm_f32": (_P, _P, _P, _P, _I, _I, _I, _I, _P),
     "pivk_backwarp_bwd_f32": (_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _P),
     "pivk_corr49_bwd_f32": (_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P),
-    "pivk_conv_chain_f32": (_P, _P, _I, _P, _P, _I, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P),
+    "pivk_conv_chain_f32": (_P, _P, _I, _P, _I, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P),
 }
 
 

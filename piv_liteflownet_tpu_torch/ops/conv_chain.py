@@ -10,15 +10,20 @@ stride 1 and is followed by LeakyReLU(0.1), except the last one when
 ``last_linear`` is set.
 
 On CUDA tensors the whole stack is one cooperative launch that runs the
-layers in turn in exact float32 (see the note in the source). The kernel has
-no backward, and the wrapper says so loudly: it raises whenever autograd
-would need a gradient, on both paths, rather than return a result cut from
-the graph.
+layers in turn (see the note in the source): layers of more than 8 output
+channels on the tensor cores at float32 accuracy (3xTF32: every operand split
+as :func:`tf32_split` does, three TF32 products per multiply-add), the rest
+with float32 FMAs. :func:`layer_plan` is the per-layer rule (path, channel
+tile, shared memory, packed-weight layout) that the wrapper passes to the
+kernel. The kernel has no backward, and the wrapper says so loudly: it raises
+whenever autograd would need a gradient, on both paths, rather than return a
+result cut from the graph.
 """
 
 from __future__ import annotations
 
 import ctypes
+import dataclasses
 import weakref
 from typing import Dict, List, Sequence, Tuple
 
@@ -31,6 +36,18 @@ from piv_liteflownet_tpu_torch.ops.nn import leaky_relu
 MAX_PARTS = 3
 MAX_LAYERS = 8
 KERNEL_SIZES = (1, 3, 5, 7)
+#: Shared memory a block may take on an H100 (227 KB), less 1 KB for static arrays.
+SMEM_BUDGET = 232448 - 1024
+#: Channel tiles of the tensor-core path, widest first (a thread holds a tile's sums twice, as
+#: the running total and a step's fresh sum: 2 x 64 registers at 64); layers of at most
+#: ``FFMA_MAX_COUT`` output channels take the FFMA path.
+MMA_WIDTHS = (64, 32)
+FFMA_MAX_COUT = 8
+MMA_TILE = (8, 32)     # output rows x columns of a tensor-core tile
+MMA_CHUNK = 16         # input channels per staged chunk (K is padded to it)
+MMA_PIXEL_WORDS = 20   # staged words per pixel of a chunk, and per weight row
+FFMA_TILE = (32, 32)
+FFMA_CHUNK = 8
 
 #: Kernel launches made by :func:`conv_chain` (plain-path calls do not count).
 launches = 0
@@ -109,8 +126,100 @@ def conv_chain(parts: Sequence[torch.Tensor], weights: Sequence[torch.Tensor],
     return out
 
 
-def _packed(weights: Sequence[torch.Tensor], biases: Sequence[torch.Tensor]) -> torch.Tensor:
-    """Per conv, the weight as ``[Cin][k][k][Cout]`` then the bias, in one buffer; cached per stack."""
+def tf32_split(x: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+    """``(hi, lo)`` float32 tensors with ``x ~ hi + lo``, each a TF32 value (low 13 mantissa bits 0).
+
+    ``hi`` rounds ``x`` to TF32 to nearest, ties away from zero (PTX ``cvt.rna.tf32.f32``), and
+    ``lo`` rounds ``x - hi`` (exact in float32) the same way: ``|x - hi - lo| <= 2^-22 |x|``.
+    Rounding adds half a TF32 unit to the magnitude bits and clears the 13 below it.
+    """
+    def rna(v: torch.Tensor) -> torch.Tensor:
+        return ((v.contiguous().view(torch.int32) + 0x1000) & -0x2000).view(torch.float32)
+
+    hi = rna(x)
+    return hi, rna(x - hi)
+
+
+@dataclasses.dataclass(frozen=True)
+class LayerPlan:
+    """How the kernel runs one conv of a stack, and where its packed weights lie."""
+
+    k: int
+    cin: int
+    cout: int
+    bn: int    # output channels per tile on the tensor-core path; 0: the FFMA path
+    woff: int  # offset of the layer's packed weights in the stack's buffer, in floats
+    boff: int  # offset of its bias [cout]
+
+    @property
+    def path(self) -> str:
+        return "mma" if self.bn else "ffma"
+
+    @property
+    def cin_pad(self) -> int:
+        """K rows per tap of the packed weights: cin rounded up to a chunk (tensor-core path)."""
+        return -(-self.cin // MMA_CHUNK) * MMA_CHUNK if self.bn else self.cin
+
+    @property
+    def cout_pad(self) -> int:
+        return -(-self.cout // self.bn) * self.bn if self.bn else self.cout
+
+    @property
+    def weight_floats(self) -> int:
+        """Packed weight floats: hi and lo on the tensor-core path, the weights as they are else."""
+        return (2 if self.bn else 1) * self.cin_pad * self.k * self.k * self.cout_pad
+
+    @property
+    def smem(self) -> int:
+        """Dynamic shared memory of the layer's block, in bytes (as the kernel computes it)."""
+        return _smem(self.k, self.bn, self.cout)
+
+
+def _smem(k: int, bn: int, cout: int) -> int:
+    if bn:  # the input chunk with its halo: two stages and a lo half; two of [kx][hi|lo][bn][ci]
+        th, tw = MMA_TILE
+        a = (th + k - 1) * (tw + k - 1) * MMA_PIXEL_WORDS
+        return 4 * (3 * a + 2 * k * 2 * bn * MMA_PIXEL_WORDS)
+    th, tw = FFMA_TILE  # the input tile with its halo, and the weights [ci][k][k][rc]
+    rc = 2 if cout <= 2 else 4 if cout <= 4 else 8
+    return 4 * (FFMA_CHUNK * (th + k - 1) * ((tw + k - 1 + 3) & ~3) + FFMA_CHUNK * k * k * rc)
+
+
+def layer_plan(shapes: Sequence[Tuple[int, int, int]]) -> Tuple[LayerPlan, ...]:
+    """The kernel's plan of a stack of convs given as ``(k, cin, cout)``.
+
+    A layer of more than ``FFMA_MAX_COUT`` output channels takes the tensor-core path with the
+    widest channel tile of ``MMA_WIDTHS`` that is no wider than its channels rounded up to 32
+    and whose shared memory fits ``SMEM_BUDGET``; the others take the FFMA path. Each layer's
+    packed weights start at a multiple of 4 floats (16-byte copies), then its bias.
+    """
+    plans, off = [], 0
+    for k, cin, cout in shapes:
+        bn = 0
+        if cout > FFMA_MAX_COUT:
+            bn = next(b for b in MMA_WIDTHS if b <= -(-cout // 32) * 32 and _smem(k, b, cout) <= SMEM_BUDGET)
+        plan = LayerPlan(k, cin, cout, bn, off, 0)
+        plan = dataclasses.replace(plan, boff=off + plan.weight_floats)
+        off = -(-(plan.boff + cout) // 4) * 4
+        plans.append(plan)
+    return tuple(plans)
+
+
+def _pack_layer(plan: LayerPlan, wt: torch.Tensor) -> torch.Tensor:
+    """One conv's weight ``[Cout,Cin,k,k]`` in the kernel's layout (see ``csrc/conv_chain.cu``)."""
+    if not plan.bn:
+        return wt.permute(1, 2, 3, 0).reshape(-1)  # [cin][ky][kx][cout]
+    k, bn, ck = plan.k, plan.bn, MMA_CHUNK
+    padded = wt.new_zeros((plan.cout_pad, plan.cin_pad, k, k))
+    padded[:plan.cout, :plan.cin] = wt
+    hl = torch.stack(tf32_split(padded))  # [hl][cout][cin][ky][kx]
+    hl = hl.view(2, plan.cout_pad // bn, bn, plan.cin_pad // ck, ck, k, k)
+    return hl.permute(1, 3, 5, 6, 0, 2, 4).reshape(-1)  # [cout/bn][chunk][ky][kx][hl][bn][ci]
+
+
+def _packed(weights: Sequence[torch.Tensor], biases: Sequence[torch.Tensor]) -> Tuple[torch.Tensor, tuple]:
+    """The stack's weights and biases in one buffer laid out by :func:`layer_plan`, and the plan;
+    cached per stack."""
     tensors = [*weights, *biases]
     key = tuple(id(t) for t in tensors)
     state = [(t.data_ptr(), t._version) for t in tensors]
@@ -119,30 +228,32 @@ def _packed(weights: Sequence[torch.Tensor], biases: Sequence[torch.Tensor]) -> 
         refs, was, packed = hit
         if all(r() is t for r, t in zip(refs, tensors)) and was == state:
             return packed
+    plans = layer_plan([(wt.shape[2], wt.shape[1], wt.shape[0]) for wt in weights])
     with torch.no_grad():
-        packed = torch.cat([x for wt, bs in zip(weights, biases)
-                            for x in (wt.permute(1, 2, 3, 0).reshape(-1), bs.reshape(-1))])
+        buf = weights[0].new_zeros(plans[-1].boff + plans[-1].cout)
+        for plan, wt, bs in zip(plans, weights, biases):
+            buf[plan.woff:plan.woff + plan.weight_floats] = _pack_layer(plan, wt)
+            buf[plan.boff:plan.boff + plan.cout] = bs
     for k in [k for k, (refs, _, _) in _packs.items() if any(r() is None for r in refs)]:
         del _packs[k]
-    _packs[key] = ([weakref.ref(t) for t in tensors], state, packed)
-    return packed
+    _packs[key] = ([weakref.ref(t) for t in tensors], state, (buf, plans))
+    return buf, plans
 
 
 def _launch(parts: List[torch.Tensor], weights: Sequence[torch.Tensor],
             biases: Sequence[torch.Tensor], last_linear: bool, out: torch.Tensor) -> None:
     """The kernel call itself (a test can substitute a fake); it overwrites ``out``."""
     b, _, h, w = parts[0].shape
-    couts = [wt.shape[0] for wt in weights]
-    ks = [wt.shape[2] for wt in weights]
-    packed = _packed(weights, biases)
-    mid = max(couts[:-1], default=1)
+    packed, plans = _packed(weights, biases)
+    # NHWC intermediates, pixels (cout rounded up to 4) floats apart
+    mid = max(((p.cout + 3) & ~3 for p in plans[:-1]), default=4)
     scratch = torch.empty((2, b * mid * h * w), device=out.device, dtype=torch.float32)
     part_ptrs = (ctypes.c_void_p * len(parts))(*(p.data_ptr() for p in parts))
     part_c = (ctypes.c_int * len(parts))(*(p.shape[1] for p in parts))
-    c_ks = (ctypes.c_int * len(ks))(*ks)
-    c_couts = (ctypes.c_int * len(couts))(*couts)
+    c_plan = (ctypes.c_int * (5 * len(plans)))(
+        *(v for p in plans for v in (p.k, p.cout, p.bn, p.woff, p.boff)))
     kernels.launch("pivk_conv_chain_f32", "conv_chain", out.device,
                    ctypes.addressof(part_ptrs), ctypes.addressof(part_c), len(parts),
-                   ctypes.addressof(c_ks), ctypes.addressof(c_couts), len(ks),
-                   packed.data_ptr(), scratch[0].data_ptr(), scratch[1].data_ptr(),
-                   out.data_ptr(), b, h, w, int(last_linear))
+                   ctypes.addressof(c_plan), len(plans), packed.data_ptr(),
+                   scratch[0].data_ptr(), scratch[1].data_ptr(), out.data_ptr(), b, h, w,
+                   int(last_linear))

@@ -241,23 +241,30 @@ def test_wrapper_checks_its_operands(call, err, match):
 
 
 def test_packed_weights_layout_and_cache():
-    _, weights, biases = _to_torch(*_chain(1, [(3, 5, 4), (7, 4, 2)], [5], 1, 4, 4))
-    packed = cc._packed(weights, biases)
-    w0 = weights[0].permute(1, 2, 3, 0).reshape(-1)  # [cin][ky][kx][cout]
-    n0 = w0.numel()
-    assert torch.equal(packed[:n0], w0) and torch.equal(packed[n0:n0 + 4], biases[0])
-    assert torch.equal(packed[n0 + 4:-2], weights[1].permute(1, 2, 3, 0).reshape(-1))
-    assert torch.equal(packed[-2:], biases[1])
-    assert cc._packed(weights, biases) is packed  # cached
+    _, weights, biases = _to_torch(*_chain(1, [(3, 5, 16), (7, 16, 2)], [5], 1, 4, 4))
+    packed, plans = cc._packed(weights, biases)
+    p0, p1 = plans
+    assert (p0.path, p0.bn, p0.cin_pad, p0.cout_pad) == ("mma", 32, 16, 32)
+    # the tensor-core layer: [cout/32][chunk][ky][kx][hi|lo][32][ci 16], cin and cout padded with 0
+    hl = packed[:p0.weight_floats].view(1, 1, 3, 3, 2, 32, 16).permute(4, 0, 5, 1, 6, 2, 3).reshape(2, 32, 16, 3, 3)
+    hi, lo = cc.tf32_split(weights[0])
+    assert torch.equal(hl[0, :16, :5], hi) and torch.equal(hl[1, :16, :5], lo)
+    assert not hl[:, 16:].any() and not hl[:, :, 5:].any()
+    assert torch.equal(packed[p0.boff:p0.boff + 16], biases[0])
+    # the FFMA layer (2 channels): [cin][ky][kx][cout], from a multiple of 4 floats
+    assert p1.path == "ffma" and p1.woff % 4 == 0 and p1.woff >= p0.boff + 16
+    assert torch.equal(packed[p1.woff:p1.boff], weights[1].permute(1, 2, 3, 0).reshape(-1))
+    assert torch.equal(packed[p1.boff:], biases[1])
+    assert cc._packed(weights, biases)[0] is packed  # cached
     with torch.no_grad():
         weights[1].mul_(2)  # an in-place update bumps the version: packed again
-    again = cc._packed(weights, biases)
-    assert again is not packed and torch.equal(again[n0 + 4:-2], 2 * packed[n0 + 4:-2])
+    again = cc._packed(weights, biases)[0]
+    assert again is not packed and torch.equal(again[p1.woff:p1.boff], 2 * packed[p1.woff:p1.boff])
 
 
 def test_build_covers_the_chain_source():
     assert "conv_chain.cu" in [p.name for p in build.sources()]
-    assert len(build.SIGNATURES["pivk_conv_chain_f32"]) == 16
+    assert len(build.SIGNATURES["pivk_conv_chain_f32"]) == 15
     assert factory.PIV_V2.conv_impl == "cudnn"
     with pytest.raises(ValueError, match="conv_impl"):
         factory.config("piv", 2, conv_impl="pallas")
@@ -265,11 +272,17 @@ def test_build_covers_the_chain_source():
 
 # -- on the card ------------------------------------------------------------------------
 
+# the card-only cases add batch 2 at 123x77 (off every tile edge) through the 130-channel
+# three-part v1 S stack with the 5x5 last conv of level 3
+GPU_CASES = {**CASES, "v1_s_level3_123x77_b2": (
+    [(3, 130, 128), (3, 128, 64), (3, 64, 32), (5, 32, 2)], [64, 64, 2], (2, 123, 77), True, None)}
+
+
 @pytest.mark.gpu
-@pytest.mark.parametrize("name", list(CASES))
+@pytest.mark.parametrize("name", list(GPU_CASES))
 def test_conv_chain_kernel_matches_plain(cuda, name):
-    """Tolerance 1e-5 * max|plain| (float32 sums in another order than cuDNN's)."""
-    shapes, parts_c, (b, h, w), last_linear, _ = CASES[name]
+    """Tolerance 1e-5 * max|plain| (float32-accurate 3xTF32 sums in another order than cuDNN's)."""
+    shapes, parts_c, (b, h, w), last_linear, _ = GPU_CASES[name]
     parts, weights, biases = _to_torch(*_chain(len(name), shapes, parts_c, b, h, w), device=cuda)
     before = cc.launches
     got = cc.conv_chain(parts, weights, biases, last_linear)
