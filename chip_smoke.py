@@ -15,7 +15,8 @@ with seeded random weights, in five phases; each raises on failure, and then
 the script exits non-zero without the final line.
 
 1. Card and build: the card's name and power limit (nvidia-smi), and the
-   ``nvcc`` build of ``piv_liteflownet_tpu_torch/csrc/*.cu`` with its seconds.
+   ``nvcc`` build of ``piv_liteflownet_tpu_torch/csrc/*.cu`` with its seconds
+   and ``ptxas``'s registers and spills for every kernel.
 2. Each CUDA kernel against its plain PyTorch version on the card, at the
    shapes a 1024x1024 pair gives it at every pyramid level and at odd sizes,
    with flows that point outside the frame; the two backward kernels also at
@@ -25,7 +26,11 @@ the script exits non-zero without the final line.
    tiling); ``backwarp_bwd`` also with a smooth and a 30 px random flow at the
    level-1 training shape at both strides, its count of tiles that took the
    out-of-window path held to ``ops/warp.py:tile_windows`` in every case, and
-   both of its paths required to run. Tolerance: atol 1e-5 for the warps;
+   both of its paths required to run; the two cost-volume kernels also at
+   odd widths, maps smaller than the 7x7 window (down to 1x1), one channel and
+   192 channels at 8x8, their count of tiles that took the edge path (4-byte
+   staging) held to ``ops/correlation.py:tile_plan`` in every case, and both
+   of their paths required to run. Tolerance: atol 1e-5 for the warps;
    1e-5 * mean|f1*f2| for the
    cost volume (another summation order); 1e-5 * max|plain| for the backward
    kernels (atomics in a varying order, sums over 49 taps or C channels) and
@@ -49,7 +54,9 @@ the script exits non-zero without the final line.
    events each kernel at its level-1 shape beside its plain version, the one
    PyTorch call that computes the same function where there is one
    (``library_ms``; the port never calls it), and its bound from the bytes
-   and operations it needs; ``conv_chain`` at five stacks beside the cuDNN
+   and operations it needs (``corr49`` also at the level-1 shape of a 256^2
+   batch-8 training step, ``backwarp`` also with a random flow beside
+   ``F.grid_sample``); ``conv_chain`` at five stacks beside the cuDNN
    chain, with its bound at the 3xTF32 rate (three TF32 products per
    multiply-add, 495/3 TFLOP/s) and at the f32 CUDA-core rate.
 5. Training at 256^2 batch 8 on synthetic particle pairs: one train step
@@ -63,7 +70,9 @@ the script exits non-zero without the final line.
    and compared with the state in memory; and the backward kernels' times,
    ``backwarp_bwd`` at the level-1 shape at stride 1 (smooth and random
    flow) and stride 2, each beside ``grid_sampler_2d_backward`` on the same
-   inputs, its bound and its share of out-of-window tiles.
+   inputs, its bound and its share of out-of-window tiles; both cost-volume
+   kernels at 128^2 batch 8 for 16 to 128 channels, with a line fit that
+   splits their time into a per-launch and a per-channel part.
    Then the same check and times (10 steps) for piv v2 with the six-weight
    ``MultiScale``, built with ``conv_impl="chain"``: training never launches
    the forward-only chain.
@@ -207,18 +216,37 @@ def check_kernels(dev, ops):
         if lv < 6:
             warp_cases.append((1, c, h, w, s, 8.0))      # NetE-M warp
         rgb_cases.append((1, h, w, 8.0))
-    corr_cases += [(2, 3, 37, 53), (1, 64, 37, 53), (4, 64, 64, 64)]
+    # odd widths (the kernels' edge path), maps smaller than the window, one channel, 192 at 8x8
+    corr_edge_cases = [(2, 3, 37, 53), (1, 192, 8, 8), (2, 5, 2, 3), (1, 1, 1, 1), (1, 4, 3, 8)]
+    corr_cases += corr_edge_cases + [(1, 64, 37, 53), (4, 64, 64, 64)]
     warp_cases += [(2, 5, 37, 53, 1, 30.0), (2, 7, 37, 53, 2, 30.0), (4, 64, 128, 128, 2, 8.0)]
     rgb_cases += [(2, 37, 53, 30.0), (4, 256, 256, 8.0)]
+
+    edge_counter = corr.edge_tile_counter(dev)
+    corr_tiles = {"corr49": {"vector": 0, "edge": 0}, "corr49_bwd": {"vector": 0, "edge": 0}}
+
+    def count_corr_tiles(name, b, h, w):
+        """Hold the kernel's count of edge-path tiles to ops/correlation.py:tile_plan."""
+        plan = corr.tile_plan(b, h, w, backward=name == "corr49_bwd")
+        n_edge = int(edge_counter.item())
+        corr_tiles[name]["edge"] += n_edge
+        corr_tiles[name]["vector"] += plan.n_tiles - n_edge
+        if n_edge != (plan.n_tiles if plan.edge else 0):
+            failures.append(f"{name} [{b},{h},{w}]: {n_edge} edge-path tiles, the tile rule says "
+                            f"{plan.n_tiles if plan.edge else 0}")
+        return n_edge, plan.n_tiles
 
     for b, c, h, w in corr_cases:
         seed += 1
         f1, f2 = randn((b, c, h, w), seed, dev), randn((b, c, h, w), seed + 1000, dev)
+        edge_counter.zero_()
         got = corr.corr49(f1, f2)
         torch.cuda.synchronize()
+        n_edge, n_tiles = count_corr_tiles("corr49", b, h, w)
         want = corr.corr49_plain(f1, f2)
         tol = CORR_RTOL * float((f1 * f2).abs().mean())
-        record("corr49", f"[{b},{c},{h},{w}]", float((got - want).abs().max()), tol)
+        record("corr49", f"[{b},{c},{h},{w}], {n_edge}/{n_tiles} edge-path tiles",
+               float((got - want).abs().max()), tol)
     for b, c, h, w, s, mag in warp_cases:
         seed += 1
         img = randn((b, c, h, w), seed, dev)
@@ -253,7 +281,7 @@ def check_kernels(dev, ops):
     # and a 30 px random flow (tiles out of the window)
     for s in (1, 2):
         bwd_warp_cases += [(TRAIN_B, 64, TRAIN_H, TRAIN_W, s, "smooth"), (TRAIN_B, 64, TRAIN_H, TRAIN_W, s, 30.0)]
-    bwd_corr_cases += [(2, 3, 37, 53)]
+    bwd_corr_cases += corr_edge_cases
     counter = warp.out_of_window_counter(dev)
     tiles = {"window": 0, "out of window": 0}
     for b, c, h, w, s, mag in bwd_warp_cases:
@@ -287,13 +315,22 @@ def check_kernels(dev, ops):
         f1 = randn((b, c, h, w), seed, dev).requires_grad_()
         f2 = randn((b, c, h, w), seed + 1000, dev).requires_grad_()
         g = randn((b, 49, h, w), seed + 2000, dev)
-        corr.corr49(f1, f2).backward(g)
+        out = corr.corr49(f1, f2)
         torch.cuda.synchronize()
+        edge_counter.zero_()
+        out.backward(g)
+        torch.cuda.synchronize()
+        n_edge, n_tiles = count_corr_tiles("corr49_bwd", b, h, w)
         want1, want2 = corr.corr49_bwd_plain(f1.detach(), f2.detach(), g)
         err = max(float((f1.grad - want1).abs().max()), float((f2.grad - want2).abs().max()))
         tol = BWD_RTOL * max(float(want1.abs().max()), float(want2.abs().max()), 1.0)
-        record("corr49_bwd", f"[{b},{c},{h},{w}]", err, tol)
-        del f1, f2, g, want1, want2
+        record("corr49_bwd", f"[{b},{c},{h},{w}], {n_edge}/{n_tiles} edge-path tiles", err, tol)
+        del f1, f2, g, out, want1, want2
+    log(f"  cost-volume tiles over these cases: {corr_tiles} (each edge count equal to "
+        f"ops/correlation.py:tile_plan)")
+    for name, paths_run in corr_tiles.items():
+        if not all(paths_run.values()):
+            failures.append(f"{name}: a path of the kernel never ran: {paths_run}")
     with torch.no_grad():
         for name, parts_c, stack, last_k, last_linear, b, h, w in chain_cases():
             seed += 1
@@ -503,12 +540,24 @@ def time_all(dev, ops, models, card):
     timer = Timer(dev)
     rows = {}
     # corr49 at level 1: f1, f2 subsampled to 512^2 with 64 channels
-    b, c, h, w = 1, 64, MAIN_H // 2, MAIN_W // 2
-    f1, f2 = randn((b, c, h, w), 1, dev), randn((b, c, h, w), 2, dev)
-    rows["corr49"] = dict(
-        ms=timer(lambda: corr.corr49(f1, f2)), plain_ms=timer(lambda: corr.corr49_plain(f1, f2)),
-        library_ms=None, shape=f"[{b},{c},{h},{w}]",
-        bound=bound_ms(4 * (2 * c + 49) * b * h * w, 2 * 49 * c * b * h * w))
+    # and at level 1 of a 256^2 batch-8 training step, printed beside it; ms is the op as
+    # the path calls it (output allocation and the wrapper's host work included, as the
+    # earlier rows were timed), launch_ms the kernel alone into a preallocated output
+    corr_cases = []
+    for b, c, h, w in ((1, 64, MAIN_H // 2, MAIN_W // 2), (TRAIN_B, 64, TRAIN_H // 2, TRAIN_W // 2)):
+        f1, f2 = randn((b, c, h, w), 1, dev), randn((b, c, h, w), 2, dev)
+        out = torch.empty((b, 49, h, w), device=dev)
+        case = dict(shape=f"[{b},{c},{h},{w}]", ms=timer(lambda: corr.corr49(f1, f2)),
+                    launch_ms=timer(lambda: corr._launch(f1, f2, out)),
+                    plain_ms=timer(lambda: corr.corr49_plain(f1, f2)),
+                    bound=bound_ms(4 * (2 * c + 49) * b * h * w, 2 * 49 * c * b * h * w))
+        corr_cases.append(case)
+        log(f"  corr49 {case['shape']}: {case['ms']:.4f} ms, kernel alone {case['launch_ms']:.4f} ms, bound "
+            f"{case['bound'][0]:.4f} ms ({case['bound'][1]}, {case['bound'][0] / case['launch_ms']:.1%} of it)"
+            f"  ({card})")
+        del f1, f2, out
+    rows["corr49"] = dict(corr_cases[0], library_ms=None, cases=[
+        {k: (v[0] if k == "bound" else v) for k, v in case.items()} for case in corr_cases])
     # backwarp at level 1: the NetE-S warp of a 64-channel 1024^2 map
     b, c, h, w = 1, 64, MAIN_H, MAIN_W
     img, flow = randn((b, c, h, w), 3, dev), smooth_flow(b, h, w, dev)
@@ -522,9 +571,14 @@ def time_all(dev, ops, models, card):
     # the same warp with an independent random flow per pixel (uncoalesced taps)
     flow_r = uniform((b, 2, h, w), 4, dev, -8, 8)
     grid_r = pixel_grid(flow_r, h, w)
-    log(f"  backwarp [1,64,{h},{w}] stride 1, random |flow|<=8: "
-        f"{timer(lambda: warp.backwarp(img, flow_r)):.4f} ms, grid_sample "
-        f"{timer(lambda: F.grid_sample(img, grid_r, align_corners=True)):.4f} ms")
+    random_case = dict(shape=f"[{b},{c},{h},{w}] stride 1", flow="random |flow|<=8",
+                       ms=timer(lambda: warp.backwarp(img, flow_r)),
+                       library_ms=timer(lambda: F.grid_sample(img, grid_r, mode="bilinear", padding_mode="zeros",
+                                                              align_corners=True)))
+    rows["backwarp"]["cases"] = [random_case]
+    log(f"  backwarp [1,64,{h},{w}] stride 1, random |flow|<=8: {random_case['ms']:.4f} ms, grid_sample "
+        f"{random_case['library_ms']:.4f} ms (kernel/library {random_case['ms'] / random_case['library_ms']:.3f})"
+        f"  ({card})")
     # the NetE-M stride-2 warp at level 1, printed beside it
     flow2 = smooth_flow(b, h // 2, w // 2, dev)
     m2 = timer(lambda: warp.backwarp(img, flow2, 2))
@@ -822,11 +876,35 @@ def time_backward(dev, ops, card):
         plain_ms=timer(lambda: corr.corr49_bwd_plain(f1, f2, g)), library_ms=None,
         shape=f"[{b},{c},{h},{w}]",
         bound=bound_ms(4 * (4 * c + 49) * b * h * w, 2 * 2 * 49 * c * b * h * w))
+    del f1, f2, g, g_f1, g_f2
+    rows["corr49_bwd"]["channel_scan"] = corr_channel_scan(dev, corr, timer, card)
     for name, r in rows.items():
         lib = "null" if r["library_ms"] is None else f"{r['library_ms']:.4f}"
         log(f"  {name:14s} {r['shape']:26s} {r['ms']:.4f} ms  plain {r['plain_ms']:.4f} ms  "
             f"library {lib} ms  bound {r['bound'][0]:.4f} ms ({r['bound'][1]})  ({card})")
     return rows
+
+
+def corr_channel_scan(dev, corr, timer, card):
+    """Both cost-volume kernels at 128^2 batch 8 for 16 to 128 channels: a least-squares line
+    ms = fixed + per_channel * C splits each time into a per-launch part (g's load, the ring's
+    start, the tail) and a per-channel part (staging, sums, the backward's stores)."""
+    b, h, w = TRAIN_B, TRAIN_H // 2, TRAIN_W // 2
+    scan = {"corr49": {}, "corr49_bwd": {}}
+    for c in (16, 32, 64, 128):
+        f1, f2, g = randn((b, c, h, w), 51, dev), randn((b, c, h, w), 52, dev), randn((b, 49, h, w), 53, dev)
+        out, g_f1, g_f2 = torch.empty_like(g), torch.empty_like(f1), torch.empty_like(f2)
+        scan["corr49"][c] = timer(lambda: corr._launch(f1, f2, out))
+        scan["corr49_bwd"][c] = timer(lambda: corr._launch_bwd(f1, f2, g, g_f1, g_f2))
+        del f1, f2, g, out, g_f1, g_f2
+    fits = {}
+    for name, times in scan.items():
+        per_channel, fixed = np.polyfit(list(times), list(times.values()), 1)
+        fits[name] = dict(ms=times, fixed_ms=float(fixed), per_channel_ms=float(per_channel))
+        log(f"  {name} [{b},C,{h},{w}] for C = {list(times)}: "
+            + ", ".join(f"{t:.4f}" for t in times.values())
+            + f" ms; fit {fixed:.4f} ms + {1e3 * per_channel:.3f} us per channel  ({card})")
+    return fits
 
 
 def main() -> int:
@@ -850,7 +928,7 @@ def main() -> int:
     res = build.build()
     log(f"  kernel build: {res.seconds:.2f} s ({'built' if res.rebuilt else 'up to date'}) -> {res.path}")
     for line in res.log.splitlines():
-        if "registers" in line or "spill" in line or line.startswith("=="):
+        if any(key in line for key in ("entry function", "registers", "spill")) or line.startswith("=="):
             log(f"    {line.strip()}")
     build.load()
 
@@ -898,7 +976,7 @@ def main() -> int:
         launches_by_path={p: counts.get(name, 0) for p, counts in paths.items()},
         max_abs_err=errs[name], ms=r["ms"], plain_ms=r["plain_ms"], bound_ms=r["bound"][0],
         bound_by=r["bound"][1], library_ms=r["library_ms"],
-        **{k: r[k] for k in ("bound_f32_ms", "cases") if k in r})
+        **{k: r[k] for k in ("bound_f32_ms", "cases", "channel_scan") if k in r})
         for name, r in rows.items()]
     if len(kernels) != len(sources) or any(k["launches"] == 0 for k in kernels):
         raise AssertionError(f"a kernel never launched on its path: {paths}")

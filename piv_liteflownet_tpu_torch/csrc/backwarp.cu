@@ -22,6 +22,7 @@
 #include <cuda_runtime.h>
 
 #include "bilinear.cuh"
+#include "device_guard.cuh"
 
 namespace {
 
@@ -57,13 +58,13 @@ backwarp_kernel(const float* __restrict__ img, const float* __restrict__ flow,
 extern "C" int pivk_backwarp_f32(const void* img, const void* flow, void* out,
                                  int B, int C, int H, int W, int Ho, int Wo,
                                  int stride, int device, void* stream) {
-  cudaError_t err = cudaSetDevice(device);
-  if (err != cudaSuccess) return (int)err;
-  const long long n = (long long)B * Ho * Wo;
-  const dim3 grid((unsigned)((n + BLOCK - 1) / BLOCK));
-  backwarp_kernel<<<grid, BLOCK, 0, (cudaStream_t)stream>>>(
-      (const float*)img, (const float*)flow, (float*)out, B, C, H, W, Ho, Wo, stride);
-  return (int)cudaGetLastError();
+  return pivk::on_device(device, [&] {
+    const long long n = (long long)B * Ho * Wo;
+    const dim3 grid((unsigned)((n + BLOCK - 1) / BLOCK));
+    backwarp_kernel<<<grid, BLOCK, 0, (cudaStream_t)stream>>>(
+        (const float*)img, (const float*)flow, (float*)out, B, C, H, W, Ho, Wo, stride);
+    return (int)cudaGetLastError();
+  });
 }
 
 extern "C" const char* pivk_error_string(int code) {

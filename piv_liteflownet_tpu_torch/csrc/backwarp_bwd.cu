@@ -69,6 +69,7 @@
 #include <cuda_runtime.h>
 
 #include "bilinear.cuh"
+#include "device_guard.cuh"
 
 namespace {
 
@@ -278,16 +279,16 @@ extern "C" int pivk_backwarp_bwd_f32(const void* img, const void* flow, const vo
                                      int H, int W, int Ho, int Wo, int stride, int device,
                                      void* stream) {
   if (stride != 1 && stride != 2) return (int)cudaErrorInvalidValue;
-  cudaError_t err = cudaSetDevice(device);
-  if (err != cudaSuccess) return (int)err;
-  const cudaStream_t s = (cudaStream_t)stream;
-  err = cudaMemsetAsync(g_img, 0, (size_t)B * C * H * W * sizeof(float), s);
-  if (err != cudaSuccess) return (int)err;
-  auto* counter = (unsigned int*)n_global;
-  err = stride == 1
-      ? launch<1>((const float*)img, (const float*)flow, (const float*)gout, (float*)g_img,
-                  (float*)g_flow, counter, B, C, H, W, Ho, Wo, s)
-      : launch<2>((const float*)img, (const float*)flow, (const float*)gout, (float*)g_img,
-                  (float*)g_flow, counter, B, C, H, W, Ho, Wo, s);
-  return (int)err;
+  return pivk::on_device(device, [&] {
+    const cudaStream_t s = (cudaStream_t)stream;
+    cudaError_t err = cudaMemsetAsync(g_img, 0, (size_t)B * C * H * W * sizeof(float), s);
+    if (err != cudaSuccess) return (int)err;
+    auto* counter = (unsigned int*)n_global;
+    err = stride == 1
+        ? launch<1>((const float*)img, (const float*)flow, (const float*)gout, (float*)g_img,
+                    (float*)g_flow, counter, B, C, H, W, Ho, Wo, s)
+        : launch<2>((const float*)img, (const float*)flow, (const float*)gout, (float*)g_img,
+                    (float*)g_flow, counter, B, C, H, W, Ho, Wo, s);
+    return (int)err;
+  });
 }

@@ -71,6 +71,8 @@
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include "device_guard.cuh"
+
 namespace cg = cooperative_groups;
 
 namespace {
@@ -681,13 +683,8 @@ extern "C" int pivk_conv_chain_f32(const void* parts, const void* part_c, int n_
                                    int H, int W, int last_linear, int device, void* stream) {
   if (n_parts < 1 || n_parts > MAX_PARTS || n_layers < 1 || n_layers > MAX_LAYERS)
     return (int)cudaErrorInvalidValue;
-  int caller = 0;
-  cudaError_t err = cudaGetDevice(&caller);
-  if (err != cudaSuccess) return (int)err;
-  err = cudaSetDevice(device);
-  if (err != cudaSuccess) return (int)err;
-  const int rc = launch_chain(parts, part_c, n_parts, (const int*)plan, n_layers, wpack, buf0, buf1, out, B, H,
-                              W, last_linear, device, (cudaStream_t)stream);
-  err = cudaSetDevice(caller);
-  return rc != 0 ? rc : (int)err;
+  return pivk::on_device(device, [&] {
+    return launch_chain(parts, part_c, n_parts, (const int*)plan, n_layers, wpack, buf0, buf1, out, B, H, W,
+                        last_linear, device, (cudaStream_t)stream);
+  });
 }

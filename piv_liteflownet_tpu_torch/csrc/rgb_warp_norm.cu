@@ -18,6 +18,7 @@
 #include <cuda_runtime.h>
 
 #include "bilinear.cuh"
+#include "device_guard.cuh"
 
 namespace {
 
@@ -55,11 +56,11 @@ extern "C" int pivk_rgb_warp_norm_f32(const void* img1, const void* img2,
                                       const void* flow, void* out,
                                       int B, int H, int W, int device,
                                       void* stream) {
-  cudaError_t err = cudaSetDevice(device);
-  if (err != cudaSuccess) return (int)err;
-  const long long n = (long long)B * H * W;
-  const dim3 grid((unsigned)((n + BLOCK - 1) / BLOCK));
-  rgb_warp_norm_kernel<<<grid, BLOCK, 0, (cudaStream_t)stream>>>(
-      (const float*)img1, (const float*)img2, (const float*)flow, (float*)out, B, H, W);
-  return (int)cudaGetLastError();
+  return pivk::on_device(device, [&] {
+    const long long n = (long long)B * H * W;
+    const dim3 grid((unsigned)((n + BLOCK - 1) / BLOCK));
+    rgb_warp_norm_kernel<<<grid, BLOCK, 0, (cudaStream_t)stream>>>(
+        (const float*)img1, (const float*)img2, (const float*)flow, (float*)out, B, H, W);
+    return (int)cudaGetLastError();
+  });
 }

@@ -14,6 +14,7 @@ from piv_liteflownet_tpu_torch.kernels import build
 
 #: Largest element count a kernel indexes with 32-bit ints.
 MAX_NUMEL = 2**31 - 1
+_counters: dict[tuple[str, torch.device], torch.Tensor] = {}
 
 
 def on_cuda(op: str, *tensors: torch.Tensor) -> bool:
@@ -36,6 +37,18 @@ def on_cuda(op: str, *tensors: torch.Tensor) -> bool:
     if dev.type != "cuda":
         raise ValueError(f"{op}: no kernel or plain path for device {dev}")
     return True
+
+
+def device_counter(name: str, device: torch.device) -> torch.Tensor:
+    """The running count ``name`` (one int32 on ``device``) that a kernel adds to; a caller
+    zeroes it to count over a stretch of launches."""
+    device = torch.device(device)
+    if device.type == "cuda" and device.index is None:  # the key the kernels' launches use
+        device = torch.device("cuda", torch.cuda.current_device())
+    key = (name, device)
+    if key not in _counters:
+        _counters[key] = torch.zeros(1, dtype=torch.int32, device=device)
+    return _counters[key]
 
 
 def launch(fn_name: str, op: str, device: torch.device, *args) -> None:

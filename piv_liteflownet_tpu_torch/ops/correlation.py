@@ -5,16 +5,24 @@ maps the caller has already subsampled, which is also what the TPU kernels
 ``ops/pallas_corr.py:correlation_pallas`` and ``:correlation_planar_pallas``
 compute. NCHW here: ``[B,C,H,W] x 2 -> [B,49,H,W]``.
 
-``corr49`` launches the CUDA kernel ``csrc/corr49.cu`` for CUDA tensors (see
-the note there: bound by bytes, f2 tile + halo staged in shared memory) and
+``corr49`` launches the CUDA kernel ``csrc/corr49.cu`` for CUDA tensors and
 takes :func:`corr49_plain` for CPU tensors, which autograd differentiates.
 On CUDA the op is a ``torch.autograd.Function`` whose backward launches
 ``csrc/corr49_bwd.cu``: both input gradients as gathers, in one launch.
 :func:`corr49_bwd_plain` is its plain version. The TPU package has no
 kernel for this backward (JAX takes the XLA VJP of the shift-stack).
+
+Both kernels tile the output as ``csrc/corr_tiles.cuh`` describes: a block
+stages a map's tile plus its 3-pixel halo, channel group by channel group,
+and each thread sums 4 adjacent pixels for one displacement row in
+registers. :func:`tile_plan` is their tile rule. A launch whose rows are not
+16-byte aligned (width not a multiple of 4, or a misaligned tensor) takes
+the kernels' edge path and adds its tiles to :func:`edge_tile_counter`.
 """
 
 from __future__ import annotations
+
+from typing import NamedTuple
 
 import torch
 import torch.nn.functional as F
@@ -28,6 +36,69 @@ NDISP = (2 * MD + 1) ** 2
 launches = 0
 #: Launches of the backward kernel, made by the backward of :func:`corr49` on CUDA.
 bwd_launches = 0
+
+#: Output tile (width, height) of a block of ``csrc/corr49.cu`` and of ``csrc/corr49_bwd.cu``
+#: (whose blocks each take one of the two outputs of a tile).
+FWD_TILE = (32, 8)
+BWD_TILE = (32, 8)
+#: Channels per stage and stages in the ring of both kernels (``CC``, ``NS``).
+STAGE_CHANNELS, STAGES = 8, 3
+#: Shared memory a block may take on an H100 (227 KB).
+SMEM_LIMIT = 232448
+
+
+class CorrTiles(NamedTuple):
+    """The tiles of one launch of a cost-volume kernel."""
+
+    x0: list[int]        # column origin of each tile column
+    y0: list[int]        # row origin of each tile row
+    tile: tuple[int, int]  # (width, height) of a tile
+    batch: int           # the grid's third axis: the batch, times 2 outputs for the backward
+    smem: int            # dynamic shared memory of a block, bytes
+    edge: bool           # 4-byte staging: the width is not a multiple of 4 (or a tensor is misaligned)
+
+    @property
+    def n_tiles(self) -> int:
+        return len(self.x0) * len(self.y0) * self.batch
+
+
+def smem_bytes(backward: bool) -> int:
+    """Dynamic shared memory of a block, as ``SMEM`` in the kernel's source works it out.
+
+    Forward: a ring of ``STAGES`` stages, each ``STAGE_CHANNELS`` f2 tiles plus halo
+    ((TY+6) x (TX+8)) and f1 tiles (TY x TX). Backward: a ring of stages, each
+    ``STAGE_CHANNELS`` tiles plus halo of one map in rows of TX+12 floats, the last stage
+    sharing its memory with g's mirrored windows (per displacement, TY rows of TX+4 floats,
+    + 4).
+    """
+    tx, ty = BWD_TILE if backward else FWD_TILE
+    sh = ty + 2 * MD
+    if not backward:
+        return 4 * STAGES * STAGE_CHANNELS * (sh * (tx + 8) + ty * tx)
+    stage = STAGE_CHANNELS * sh * (tx + 12)
+    return 4 * ((STAGES - 1) * stage + max(stage, NDISP * (ty * (tx + 4) + 4)))
+
+
+def tile_plan(b: int, h: int, w: int, backward: bool = False, aligned: bool = True) -> CorrTiles:
+    """The tile rule of ``csrc/corr49.cu`` (or, with ``backward``, ``csrc/corr49_bwd.cu``).
+
+    ``aligned``: whether every tensor of the launch starts 16 bytes aligned, as
+    :func:`uses_edge_path` checks.
+    """
+    tx, ty = BWD_TILE if backward else FWD_TILE
+    return CorrTiles(list(range(0, w, tx)), list(range(0, h, ty)), (tx, ty), 2 * b if backward else b,
+                     smem_bytes(backward), w % 4 != 0 or not aligned)
+
+
+def uses_edge_path(*tensors: torch.Tensor) -> bool:
+    """Whether a launch on these tensors (the kernel's inputs and, forward, output) takes the edge path."""
+    return tensors[0].shape[-1] % 4 != 0 or any(t.data_ptr() % 16 for t in tensors)
+
+
+def edge_tile_counter(device: torch.device) -> torch.Tensor:
+    """Both kernels' running count (int32, on ``device``) of tiles that took the edge path;
+    a caller zeroes it to count over a stretch of launches."""
+    return kernels.device_counter("corr49 edge tiles", device)
 
 
 def corr49_plain(f1: torch.Tensor, f2: torch.Tensor) -> torch.Tensor:
@@ -103,16 +174,19 @@ def corr49(f1: torch.Tensor, f2: torch.Tensor) -> torch.Tensor:
 
 
 def _launch(f1: torch.Tensor, f2: torch.Tensor, out: torch.Tensor) -> None:
-    """The kernel call itself (a test can substitute a fake)."""
+    """The kernel call itself (a test can substitute a fake); an edge-path launch adds its
+    tiles to :func:`edge_tile_counter`."""
     b, c, h, w = f1.shape
     kernels.launch("pivk_corr49_f32", "corr49", f1.device,
-                   f1.data_ptr(), f2.data_ptr(), out.data_ptr(), b, c, h, w)
+                   f1.data_ptr(), f2.data_ptr(), out.data_ptr(),
+                   edge_tile_counter(f1.device).data_ptr(), b, c, h, w)
 
 
 def _launch_bwd(f1: torch.Tensor, f2: torch.Tensor, g: torch.Tensor,
                 g_f1: torch.Tensor, g_f2: torch.Tensor) -> None:
-    """The backward kernel call itself (a test can substitute a fake); it overwrites both outputs."""
+    """The backward kernel call itself (a test can substitute a fake); it overwrites both
+    outputs, and an edge-path launch adds its tiles to :func:`edge_tile_counter`."""
     b, c, h, w = f1.shape
     kernels.launch("pivk_corr49_bwd_f32", "corr49_bwd", f1.device,
                    f1.data_ptr(), f2.data_ptr(), g.data_ptr(), g_f1.data_ptr(),
-                   g_f2.data_ptr(), b, c, h, w)
+                   g_f2.data_ptr(), edge_tile_counter(f1.device).data_ptr(), b, c, h, w)

@@ -39,7 +39,6 @@ TILE_W, TILE_H = 32, 1
 #: The float4 that a tile's shared-memory window holds (``CAP`` in ``csrc/backwarp_bwd.cu``):
 #: its footprint's rows times its columns of 4, counted from x0, must not exceed it.
 WINDOW_VEC4 = 352
-_counters: dict[torch.device, torch.Tensor] = {}
 
 
 def out_hw(h: int, w: int, stride: int) -> tuple[int, int]:
@@ -168,12 +167,7 @@ def out_of_window_tiles(flow: torch.Tensor, h: int, w: int, stride: int) -> int:
 def out_of_window_counter(device: torch.device) -> torch.Tensor:
     """The backward kernel's running count (int32, on ``device``) of tiles that took the
     global-atomic path; a caller zeroes it to count over a stretch of launches."""
-    device = torch.device(device)
-    if device.type == "cuda" and device.index is None:  # the key the kernel's launches use
-        device = torch.device("cuda", torch.cuda.current_device())
-    if device not in _counters:
-        _counters[device] = torch.zeros(1, dtype=torch.int32, device=device)
-    return _counters[device]
+    return kernels.device_counter("backwarp_bwd out of window", device)
 
 
 class _Backwarp(torch.autograd.Function):
