@@ -8,7 +8,8 @@ Run from the repository root, with no arguments:
 It drives PIV-LiteFlowNet-en version 1 inference and training, and
 PIV-LiteFlowNet2-en and Hui LiteFlowNet2 (version 2) inference and training,
 also with the NetE conv stacks through the ``conv_chain`` kernel
-(``conv_impl="chain"``), through the port's entry points (``piv_liteflownet``,
+(``conv_impl="chain"``) and in bf16 (the models cast with
+``.to(torch.bfloat16)``), through the port's entry points (``piv_liteflownet``,
 ``hui_liteflownet``, ``estimate``, ``write_flow``/``read_flow``;
 ``make_optimizer``, ``make_train_step``, ``Train``, ``resume``) at full width
 with seeded random weights, in five phases; each raises on failure, and then
@@ -37,7 +38,14 @@ the script exits non-zero without the final line.
    for ``conv_chain`` (float32-accurate sums over up to 3474 taps per layer
    in another order than cuDNN's, through up to 6 layers: 3xTF32 on the
    tensor cores, whose dropped lo*lo term is below 2^-22 of a product;
-   single-pass TF32 would miss this tolerance).
+   single-pass TF32 would miss this tolerance). Then the bf16 forms of
+   ``corr49``, ``backwarp`` and ``rgb_warp_norm`` at the same level shapes,
+   flows of up to 30 px at both strides, and the cost volume's edge path
+   (widths not a multiple of 8, a tensor 2 bytes off 16; its tile count
+   held to ``tile_plan`` and both paths required): each held to the
+   float32 plain version on the bf16 inputs upcast to float32, then rounded
+   to bf16, within one bf16 ulp of that reference plus the float32 kernel's
+   own tolerance, elementwise.
 3. The slices end to end on synthetic particle-image pairs: ``estimate`` of
    piv v1, piv v2 and hui v2, with cuDNN convs and with the conv chain, at
    1024^2 b1, 256^2 b4 and 250x300 b1 (through the /32 resize). Each path is
@@ -49,6 +57,14 @@ the script exits non-zero without the final line.
    forward, a ``.flo`` round trip; and one ``estimate`` under torch's default
    flags (cuDNN TF32 on), held to the CPU plain path and to the call with
    TF32 off, beside the size of the TF32 error of an unpinned forward.
+   Then bf16 inference, this slice's main path: ``estimate`` of piv v1,
+   piv v2 and hui v2 cast to bf16 at 1024^2 b1, 256^2 b4 and 250x300, with
+   the counts set to 0 just before and read just after (only the ``_bf16``
+   forms may launch: 6/11/6 for v1), the flow held to the float32 flow of
+   the same weights, to the bf16 plain ops on the card and to the bf16 CPU
+   path within 3 % of the float32 flow's max |flow|; the conv chain in bf16
+   must raise; and ``python -m piv_liteflownet_tpu_torch.run -m piv -v 1
+   --bf16`` on two synthetic pairs must write float32 ``.flo`` files.
 4. Times: estimate ms/pair (median and p90 of 100 calls, 30 with the conv
    chain; host clock around synchronised calls) and pairs/s, and with CUDA
    events each kernel at its level-1 shape beside its plain version, the one
@@ -58,7 +74,12 @@ the script exits non-zero without the final line.
    batch-8 training step, ``backwarp`` also with a random flow beside
    ``F.grid_sample``); ``conv_chain`` at five stacks beside the cuDNN
    chain, with its bound at the 3xTF32 rate (three TF32 products per
-   multiply-add, 495/3 TFLOP/s) and at the f32 CUDA-core rate.
+   multiply-add, 495/3 TFLOP/s) and at the f32 CUDA-core rate. bf16
+   ``estimate`` right after float32 for the same model and size, and the
+   peak memory of each; ``rgb_warp_norm`` and ``backwarp`` (as ``corr49``)
+   also alone into a preallocated output (``launch_ms``); the bf16 forms
+   through the op and alone, beside their plain version in bf16 and their
+   bound from the bf16 bytes.
 5. Training at 256^2 batch 8 on synthetic particle pairs: one train step
    through the kernels (the training path: the launch counts are set to 0
    just before it and read just after) and one through the plain ops from
@@ -80,8 +101,9 @@ the script exits non-zero without the final line.
 The line before the last is ``{"kernels": [...]}`` (``launches``: per call of
 each kernel's own path, the piv v1 estimate for the forward kernels, the
 piv v2 chain estimate for ``conv_chain``, the piv v1 train step for the
-backward ones; ``launches_per_train_step`` of the piv v1 step and
-``launches_by_path`` for all six); the last line is
+backward ones, the piv v1 bf16 estimate for the ``_bf16`` forms;
+``launches_per_train_step`` of the piv v1 step and ``launches_by_path`` for
+all nine C entry points); the last line is
 ``{"ok": true, "device": {...}}``. Without a CUDA device it exits 2 and
 prints no result.
 """
@@ -346,6 +368,100 @@ def check_kernels(dev, ops):
     return errs
 
 
+def bf16_ulp(ref: torch.Tensor) -> torch.Tensor:
+    """The spacing of bf16 values at |ref| (ref: bf16 values held in float32)."""
+    _, e = torch.frexp(ref.abs())
+    return torch.ldexp(torch.ones_like(ref), e - 8)
+
+
+def check_bf16_kernels(dev, ops):
+    """Each kernel's bf16 form against the float32 plain version on the bf16 inputs upcast to
+    float32, then rounded to bf16: within one bf16 ulp of that reference plus the float32
+    kernel's own tolerance, elementwise."""
+    corr, warp, rgb, _ = ops
+    bf = torch.bfloat16
+    errs = dict.fromkeys(BF16_KERNELS, 0.0)
+    failures = []
+
+    def hold(name, what, got, want_f32, f32_tol):
+        ref = want_f32.to(bf).float()
+        err = (got.float() - ref).abs()
+        n_bad = int((err > bf16_ulp(ref) + f32_tol).sum())
+        errs[name] = max(errs[name], float(err.max()))
+        ok = n_bad == 0 and got.dtype == bf
+        log(f"  {name:18s} {what:56s} max_abs_err {float(err.max()):.3e}, {n_bad} beyond 1 ulp "
+            f"+ {f32_tol:.1e}  {'ok' if ok else 'FAIL'}")
+        if not ok:
+            failures.append(f"{name} {what}")
+
+    seed = 500
+    corr_cases, warp_cases, rgb_cases = [], [], []
+    for lv, (h, w), c in level_shapes(MAIN_H, MAIN_W):
+        s = 2 if lv < 4 else 1
+        corr_cases.append((1, c, -(-h // s), -(-w // s), True))
+        warp_cases.append((1, c, h, w, 1, 8.0))
+        if lv < 6:
+            warp_cases.append((1, c, h, w, s, 8.0))
+        rgb_cases.append((1, h, w, 8.0))
+    # the edge path: odd widths, widths that are a multiple of 4 but not of 8 (a float32 vector
+    # launch, a bf16 edge one), maps smaller than the window, a tensor 2 bytes off 16
+    corr_cases += [(2, 3, 37, 53, True), (1, 192, 8, 8, True), (2, 5, 2, 3, True), (1, 1, 1, 1, True),
+                   (1, 4, 3, 12, True), (1, 64, 64, 36, True), (1, 8, 16, 32, False)]
+    warp_cases += [(1, 64, MAIN_H, MAIN_W, 1, 30.0), (1, 64, MAIN_H, MAIN_W, 2, 30.0),
+                   (2, 5, 37, 53, 1, 30.0), (2, 7, 37, 53, 2, 30.0)]
+    rgb_cases += [(2, 37, 53, 30.0), (4, 256, 256, 8.0)]
+    edge_counter = corr.edge_tile_counter(dev)
+    tiles = {"vector": 0, "edge": 0}
+    for b, c, h, w, aligned in corr_cases:
+        seed += 1
+        n = b * c * h * w
+        if aligned:
+            f1, f2 = randn((b, c, h, w), seed, dev).to(bf), randn((b, c, h, w), seed + 1000, dev).to(bf)
+        else:
+            base = randn((2 * n + 1,), seed, dev).to(bf)
+            f1, f2 = base[1:1 + n].view(b, c, h, w), base[1 + n:].view(b, c, h, w)
+        edge_counter.zero_()
+        got = corr.corr49(f1, f2)
+        torch.cuda.synchronize()
+        plan = corr.tile_plan(b, h, w, aligned=aligned, dtype=bf)
+        n_edge = int(edge_counter.item())
+        tiles["edge"] += n_edge
+        tiles["vector"] += plan.n_tiles - n_edge
+        if n_edge != (plan.n_tiles if plan.edge else 0) or corr.uses_edge_path(f1, f2) != plan.edge:
+            failures.append(f"corr49_bf16 [{b},{c},{h},{w}]: {n_edge} edge-path tiles, the tile rule "
+                            f"says {plan.n_tiles if plan.edge else 0}")
+        a, bb = f1.float(), f2.float()
+        hold("corr49_bf16", f"[{b},{c},{h},{w}]{'' if aligned else ' 2 bytes off'}, {n_edge}/{plan.n_tiles} "
+             f"edge-path tiles", got, corr.corr49_plain(a, bb), CORR_RTOL * float((a * bb).abs().mean()))
+        del f1, f2, got, a, bb
+    log(f"  corr49_bf16 tiles over these cases: {tiles} (each edge count equal to "
+        f"ops/correlation.py:tile_plan)")
+    if not all(tiles.values()):
+        failures.append(f"corr49_bf16: a path of the kernel never ran: {tiles}")
+    for b, c, h, w, s, mag in warp_cases:
+        seed += 1
+        img = randn((b, c, h, w), seed, dev).to(bf)
+        ho, wo = warp.out_hw(h, w, s)
+        flow = uniform((b, 2, ho, wo), seed + 1000, dev, -mag, mag).to(bf)
+        got = warp.backwarp(img, flow, s)
+        torch.cuda.synchronize()
+        hold("backwarp_bf16", f"[{b},{c},{h},{w}] stride {s} |flow|<={mag:g}", got,
+             warp.backwarp_plain(img.float(), flow.float(), s), WARP_ATOL)
+        del img, flow, got
+    for b, h, w, mag in rgb_cases:
+        seed += 1
+        img1 = uniform((b, 3, h, w), seed, dev, 0, 1).to(bf)
+        img2 = uniform((b, 3, h, w), seed + 7, dev, 0, 1).to(bf)
+        flow = uniform((b, 2, h, w), seed + 1000, dev, -mag, mag).to(bf)
+        got = rgb.rgb_warp_norm(img1, img2, flow)
+        torch.cuda.synchronize()
+        hold("rgb_warp_norm_bf16", f"[{b},3,{h},{w}] |flow|<={mag:g}", got,
+             rgb.rgb_warp_norm_plain(img1.float(), img2.float(), flow.float()), WARP_ATOL)
+    if failures:
+        raise AssertionError(f"bf16 kernels disagree with their references: {failures}")
+    return errs
+
+
 # -- phase 3: the slice end to end -------------------------------------------------------
 
 def close(got: torch.Tensor, want: torch.Tensor, what: str) -> float:
@@ -374,6 +490,7 @@ SLICE_CASES = [
     ("hui", 2, "chain", 1, MAIN_H, MAIN_W, 15, (4, 7, 4, 12), False),
 ]
 FWD_KERNELS = ("corr49", "backwarp", "rgb_warp_norm", "conv_chain")
+BF16_KERNELS = ("corr49_bf16", "backwarp_bf16", "rgb_warp_norm_bf16")
 PATH_V1 = "estimate piv v1 1024^2 b1"
 PATH_V2_CHAIN = "estimate piv v2 conv_impl=chain 1024^2 b1"
 
@@ -404,13 +521,15 @@ def run_slice(dev, ops):
         reset_counts(ops)
         flow = estimate(model, t1, t2, tensor=True)
         torch.cuda.synchronize()
-        counts = tuple(read_counts(ops)[k] for k in FWD_KERNELS)
+        all_counts = read_counts(ops)
+        counts = tuple(all_counts[k] for k in FWD_KERNELS)
         if (key, b, h) == (("piv", 1, "cudnn"), 1, MAIN_H):
-            paths[PATH_V1] = dict(zip(FWD_KERNELS, counts))
+            paths[PATH_V1] = all_counts
         if (key, b, h) == (("piv", 2, "chain"), 1, MAIN_H):
-            paths[PATH_V2_CHAIN] = dict(zip(FWD_KERNELS, counts))
-        if counts != expected:
-            raise AssertionError(f"{what}: launches {counts} per forward, expected {expected}")
+            paths[PATH_V2_CHAIN] = all_counts
+        if counts != expected or any(all_counts[k] for k in BF16_KERNELS):
+            raise AssertionError(f"{what}: launches {all_counts} per forward, expected {expected} "
+                                 f"and no bf16 form")
         if tuple(flow.shape) != (b, h, w, 2) or not bool(torch.isfinite(flow).all()):
             raise AssertionError(f"{what}: bad flow, shape {tuple(flow.shape)}")
         plain = estimate(model, t1, t2, tensor=True, ops=PLAIN_OPS)
@@ -464,6 +583,123 @@ def check_tf32_repair(model, t1, t2, cpu_ref, f32_flow):
         f"{float((tf32 - f32).abs().max()):.3e} (max|flow| {float(f32.abs().max()):.3e})")
 
 
+# (family, version, b, h, w, seed, launches of the bf16 forms of corr49/backwarp/rgb_warp_norm,
+#  held to the CPU model); every float32 form must launch 0 times
+BF16_CASES = [
+    ("piv", 1, 1, MAIN_H, MAIN_W, 31, (6, 11, 6), False),  # this slice's main path
+    ("piv", 2, 1, MAIN_H, MAIN_W, 32, (5, 9, 5), False),
+    ("hui", 2, 1, MAIN_H, MAIN_W, 33, (4, 7, 4), False),
+    ("piv", 1, 4, 256, 256, 34, (6, 11, 6), False),
+    ("piv", 1, 1, 250, 300, 35, (6, 11, 6), True),
+    ("piv", 2, 1, 250, 300, 36, (5, 9, 5), True),
+]
+BF16_FLOW_TOL = 0.03  # of the float32 flow's max |flow|, as tests/test_torch_bf16.py
+PATH_V1_BF16 = "estimate piv v1 bf16 1024^2 b1"
+
+
+def run_bf16_slice(dev, ops, f32_models):
+    """bf16 inference end to end: ``estimate`` of each model cast to bfloat16, with the launch
+    counts set to 0 just before it and read just after (only the bf16 forms may launch); its
+    flow held to the float32 flow of the same weights on the same pair, to the bf16 plain ops on
+    the card and, at 250x300, to the bf16 CPU path; the conv chain in bf16 raises; and the
+    ``run`` CLI with ``--bf16`` writes float32 ``.flo`` files."""
+    from piv_liteflownet_tpu_torch.inference import estimate
+    from piv_liteflownet_tpu_torch.models.liteflownet import PLAIN_OPS
+    from piv_liteflownet_tpu_torch.utils.synthetic import particle_pair
+
+    bf = torch.bfloat16
+    models, paths = {}, {}
+    for family, version, b, h, w, seed, expected, on_cpu in BF16_CASES:
+        key = (family, version)
+        if key not in models:
+            models[key] = build_model(family, version, "cudnn").to(bf)
+        model = models[key]
+        what = f"{family} v{version} bf16 b{b} {h}x{w}"
+        im1, im2 = particle_pair(b, h, w, seed)
+        t1, t2 = torch.from_numpy(im1).to(dev), torch.from_numpy(im2).to(dev)
+        torch.cuda.synchronize()
+        reset_counts(ops)
+        flow = estimate(model, t1, t2, tensor=True)
+        torch.cuda.synchronize()
+        counts = read_counts(ops)
+        if (key, b, h) == (("piv", 1), 1, MAIN_H):
+            paths[PATH_V1_BF16] = counts
+        got = tuple(counts[k] for k in BF16_KERNELS)
+        f32_launched = {k: v for k, v in counts.items() if k not in BF16_KERNELS and v}
+        if got != expected or f32_launched:
+            raise AssertionError(f"{what}: launches {counts}, expected bf16 {expected} and no float32 form")
+        if (flow.dtype != bf or tuple(flow.shape) != (b, h, w, 2)
+                or not bool(torch.isfinite(flow).all())):
+            raise AssertionError(f"{what}: bad flow, {flow.dtype} {tuple(flow.shape)}")
+        ref = estimate(f32_models[family, version, "cudnn"], t1, t2, tensor=True)
+        tol = BF16_FLOW_TOL * float(ref.abs().max())
+        errs = {"vs float32": float((flow.float() - ref).abs().max())}
+        errs["vs bf16 plain ops"] = float((flow - estimate(model, t1, t2, tensor=True, ops=PLAIN_OPS))
+                                          .float().abs().max())
+        if on_cpu:
+            cpu = estimate(build_model(family, version, "cudnn", device="cpu").to(bf), im1, im2, tensor=True)
+            errs["vs bf16 CPU plain path"] = float((flow.float().cpu() - cpu.float()).abs().max())
+        log(f"  estimate {what}: launches corr49/backwarp/rgb_warp_norm_bf16 = {got}, float32 forms 0; "
+            f"max|flow| f32 {float(ref.abs().max()):.4e}, "
+            + ", ".join(f"{k} {v:.3e}" for k, v in errs.items()) + f" (tol {tol:.3e})")
+        if max(errs.values()) > tol:
+            raise AssertionError(f"{what}: {errs} beyond {tol:.3e}")
+        del flow, ref, t1, t2
+    im1, im2 = particle_pair(1, 256, 256, 37)
+    try:
+        estimate(build_model("piv", 1, "chain").to(bf), im1, im2)
+    except NotImplementedError as e:
+        log(f"  conv_impl='chain' in bf16 raises NotImplementedError: {e}")
+    else:
+        raise AssertionError("a bf16 estimate with conv_impl='chain' did not raise")
+    run_cli_bf16(models["piv", 1])
+    return {"paths": paths, "models": models}
+
+
+def run_cli_bf16(model) -> None:
+    """``python -m piv_liteflownet_tpu_torch.run -m piv -v 1 --bf16`` on a directory of two
+    synthetic 256^2 pairs: float32 .flo files holding bf16 values, which agree with the bf16
+    ``estimate`` of ``model`` (piv v1, the same seeded weights) on the frames read back."""
+    from PIL import Image
+
+    from piv_liteflownet_tpu_torch.inference import estimate
+    from piv_liteflownet_tpu_torch.run import load_image
+    from piv_liteflownet_tpu_torch.utils.flow_io import read_flow
+    from piv_liteflownet_tpu_torch.utils.synthetic import particle_pair
+
+    with tempfile.TemporaryDirectory() as tmp:
+        indir, outdir = Path(tmp) / "pairs", Path(tmp) / "out"
+        indir.mkdir()
+        im1, im2 = particle_pair(2, 256, 256, seed=38)
+        for i in range(2):
+            for tag, im in (("img1", im1[i]), ("img2", im2[i])):
+                Image.fromarray((im * 255).round().astype(np.uint8)).save(indir / f"p{i:02d}_{tag}.png")
+        t0 = time.perf_counter()
+        proc = subprocess.run([sys.executable, "-m", "piv_liteflownet_tpu_torch.run", "-m", "piv", "-v", "1",
+                               "--bf16", "-p", "-i", str(indir), "-o", str(outdir)],
+                              capture_output=True, text=True, timeout=300, cwd=Path(__file__).resolve().parent)
+        if proc.returncode != 0:
+            raise AssertionError(f"run --bf16 failed:\n{proc.stdout}\n{proc.stderr}")
+        flodir = outdir / "PIV-LiteFlowNet-en" / "pairs" / "flow"
+        flos = sorted(flodir.iterdir())
+        if [f.name for f in flos] != ["p00_img1_out.flo", "p01_img1_out.flo"]:
+            raise AssertionError(f"run --bf16 wrote {flos}")
+        for f in flos:
+            flow = read_flow(str(f))
+            if f.stat().st_size != 12 + 4 * 256 * 256 * 2 or not np.isfinite(flow).all():
+                raise AssertionError(f"{f.name}: not a finite float32 256x256 flow")
+            if not torch.equal(torch.from_numpy(flow).to(torch.bfloat16).float(), torch.from_numpy(flow)):
+                raise AssertionError(f"{f.name}: values are not bf16 values")
+            stem = f.name[:-len("_img1_out.flo")]
+            want = estimate(model, load_image(str(indir / f"{stem}_img1.png")),
+                            load_image(str(indir / f"{stem}_img2.png")))
+            if np.abs(flow - want).max() > BF16_FLOW_TOL * max(float(np.abs(want).max()), 1e-30):
+                raise AssertionError(f"{f.name}: differs from the bf16 estimate of the same frames")
+        log(f"  run -m piv -v 1 --bf16 on 2 pairs: {[f.name for f in flos]}, float32 .flo holding bf16 "
+            f"values ({time.perf_counter() - t0:.1f} s, process start and kernel load included); "
+            f"it printed: {' | '.join(proc.stdout.strip().splitlines()[:3])}")
+
+
 # -- phase 4: times -------------------------------------------------------------------------
 
 class Timer:
@@ -515,27 +751,53 @@ def time_estimate(fn, b: int, what: str, card: str, iters: int = ESTIMATE_ITERS)
     med, p90 = np.percentile(samples, [50, 90])
     log(f"  estimate {what}: {med / b:.3f} ms/pair median, p90 {p90 / b:.3f} "
         f"({len(samples)} calls), {1e3 * b / med:.2f} pairs/s ({card})")
+    return med / b
 
 
-def time_all(dev, ops, models, card):
+def peak_memory(dev, fn) -> float:
+    """Peak device memory (GiB) of one call of ``fn`` beyond what was allocated before it."""
+    torch.cuda.synchronize()
+    base = torch.cuda.memory_allocated(dev)
+    torch.cuda.reset_peak_memory_stats(dev)
+    fn()
+    torch.cuda.synchronize()
+    return (torch.cuda.max_memory_allocated(dev) - base) / 2**30
+
+
+def time_all(dev, ops, models, bf16_models, card):
     from piv_liteflownet_tpu_torch.inference import estimate
     from piv_liteflownet_tpu_torch.utils.synthetic import particle_pair
 
     corr, warp, rgb, chain = ops
+    bf = torch.bfloat16
+    per_pair = {}
+    # each bf16 cell right after the float32 cell of the same model and size
     for (family, version, conv_impl), b, h, w in (
-            (("piv", 1, "cudnn"), 1, MAIN_H, MAIN_W), (("piv", 1, "cudnn"), 4, 256, 256),
-            (("piv", 2, "cudnn"), 1, MAIN_H, MAIN_W), (("piv", 2, "cudnn"), 4, 256, 256),
+            (("piv", 1, "cudnn"), 1, MAIN_H, MAIN_W), (("piv", 1, "bf16"), 1, MAIN_H, MAIN_W),
+            (("piv", 1, "cudnn"), 4, 256, 256), (("piv", 1, "bf16"), 4, 256, 256),
+            (("piv", 2, "cudnn"), 1, MAIN_H, MAIN_W), (("piv", 2, "bf16"), 1, MAIN_H, MAIN_W),
+            (("piv", 2, "cudnn"), 4, 256, 256),
             (("piv", 1, "chain"), 1, MAIN_H, MAIN_W), (("piv", 2, "chain"), 1, MAIN_H, MAIN_W)):
-        model = models[family, version, conv_impl]
+        model = bf16_models[family, version] if conv_impl == "bf16" else models[family, version, conv_impl]
         im1, im2 = particle_pair(b, h, w, seed=10 + b)
         t1, t2 = torch.from_numpy(im1).to(dev), torch.from_numpy(im2).to(dev)
-        time_estimate(lambda: estimate(model, t1, t2, tensor=True), b,
-                      f"{family} v{version} {conv_impl} {h}x{w} b{b}, inputs and flow on the card",
-                      card, CHAIN_ESTIMATE_ITERS if conv_impl == "chain" else ESTIMATE_ITERS)
+        per_pair[family, version, conv_impl, b, h] = time_estimate(
+            lambda: estimate(model, t1, t2, tensor=True), b,
+            f"{family} v{version} {conv_impl} {h}x{w} b{b}, inputs and flow on the card",
+            card, CHAIN_ESTIMATE_ITERS if conv_impl == "chain" else ESTIMATE_ITERS)
+    for version in (1, 2):
+        f32_ms, bf16_ms = per_pair["piv", version, "cudnn", 1, MAIN_H], per_pair["piv", version, "bf16", 1, MAIN_H]
+        log(f"  estimate piv v{version} {MAIN_H}x{MAIN_W} b1: bf16 {bf16_ms:.3f} against float32 "
+            f"{f32_ms:.3f} ms/pair in this call (bf16/f32 {bf16_ms / f32_ms:.3f})  ({card})")
     # what run.py pays per pair: numpy frames in, numpy flow out
     im1, im2 = particle_pair(1, MAIN_H, MAIN_W, seed=12)
     time_estimate(lambda: estimate(models["piv", 1, "cudnn"], im1[0], im2[0]), 1,
                   f"piv v1 cudnn {MAIN_H}x{MAIN_W} b1, numpy in and out", card)
+    t1, t2 = torch.from_numpy(im1).to(dev), torch.from_numpy(im2).to(dev)
+    for name, model in (("float32", models["piv", 1, "cudnn"]), ("bf16", bf16_models["piv", 1])):
+        gib = peak_memory(dev, lambda: estimate(model, t1, t2, tensor=True))
+        log(f"  estimate piv v1 {name} {MAIN_H}x{MAIN_W} b1: peak device memory {gib:.3f} GiB beyond "
+            f"the weights and inputs  ({card})")
 
     timer = Timer(dev)
     rows = {}
@@ -562,8 +824,10 @@ def time_all(dev, ops, models, card):
     b, c, h, w = 1, 64, MAIN_H, MAIN_W
     img, flow = randn((b, c, h, w), 3, dev), smooth_flow(b, h, w, dev)
     grid = pixel_grid(flow, h, w)
+    out = torch.empty_like(img)
     rows["backwarp"] = dict(
-        ms=timer(lambda: warp.backwarp(img, flow)), plain_ms=timer(lambda: warp.backwarp_plain(img, flow)),
+        ms=timer(lambda: warp.backwarp(img, flow)), launch_ms=timer(lambda: warp._launch(img, flow, 1, out)),
+        plain_ms=timer(lambda: warp.backwarp_plain(img, flow)),
         library_ms=timer(lambda: F.grid_sample(img, grid, mode="bilinear", padding_mode="zeros",
                                                align_corners=True)),
         shape=f"[{b},{c},{h},{w}] stride 1",
@@ -589,14 +853,17 @@ def time_all(dev, ops, models, card):
     img1, img2 = uniform((b, 3, h, w), 6, dev, 0, 1), uniform((b, 3, h, w), 7, dev, 0, 1)
     flow = smooth_flow(b, h, w, dev)
     grid = pixel_grid(flow, h, w)
+    norm = torch.empty((b, 1, h, w), device=dev)
     rows["rgb_warp_norm"] = dict(
         ms=timer(lambda: rgb.rgb_warp_norm(img1, img2, flow)),
+        launch_ms=timer(lambda: rgb._launch(img1, img2, flow, norm)),
         plain_ms=timer(lambda: rgb.rgb_warp_norm_plain(img1, img2, flow)),
         library_ms=timer(lambda: F.grid_sample(img2, grid, mode="bilinear", padding_mode="zeros",
                                                align_corners=True)),
         shape=f"[{b},3,{h},{w}]",
         bound=bound_ms(4 * (3 + 3 + 2 + 1) * b * h * w, 27 * b * h * w))
-    del img, img1, img2, flow, grid, flow_r, grid_r, flow2
+    del img, img1, img2, flow, grid, flow_r, grid_r, flow2, out, norm
+    rows.update(time_bf16_kernels(dev, ops, timer, card))
     # conv_chain at the piv v1 level-1 M, S and R stacks of a 1024^2 pair (the S stack is the
     # row) and the 6-conv v2 M and S stacks at level 2, each beside the cuDNN chain (its plain
     # version); the bound at the 3xTF32 rate (three TF32 products per multiply-add) and at the
@@ -623,8 +890,51 @@ def time_all(dev, ops, models, card):
             del parts, weights, biases
     for name, r in rows.items():
         lib = "null" if r["library_ms"] is None else f"{r['library_ms']:.4f}"
-        log(f"  {name:14s} {r['shape']:26s} {r['ms']:.4f} ms  plain {r['plain_ms']:.4f} ms  "
+        alone = (f", kernel alone {r['launch_ms']:.4f} ms ({r['bound'][0] / r['launch_ms']:.1%} of the bound)"
+                 if "launch_ms" in r else "")
+        log(f"  {name:18s} {r['shape']:26s} {r['ms']:.4f} ms{alone}  plain {r['plain_ms']:.4f} ms  "
             f"library {lib} ms  bound {r['bound'][0]:.4f} ms ({r['bound'][1]})  ({card})")
+    return rows
+
+
+def time_bf16_kernels(dev, ops, timer, card):
+    """The bf16 forms at their level-1 shapes of a 1024^2 pair: through the op (``ms``), alone
+    into a preallocated output (``launch_ms``), the plain version in bf16, and the bound from the
+    bf16 bytes. No single PyTorch call computes their function: ``F.grid_sample`` on a bf16 map
+    takes a bf16 grid, whose normalised coordinates are coarser than a pixel at this size (its
+    time is printed, as a call of another function)."""
+    corr, warp, rgb, _ = ops
+    bf = torch.bfloat16
+    rows = {}
+    b, c, h, w = 1, 64, MAIN_H // 2, MAIN_W // 2
+    f1, f2 = randn((b, c, h, w), 1, dev).to(bf), randn((b, c, h, w), 2, dev).to(bf)
+    out = torch.empty((b, 49, h, w), device=dev, dtype=bf)
+    rows["corr49_bf16"] = dict(
+        shape=f"[{b},{c},{h},{w}]", ms=timer(lambda: corr.corr49(f1, f2)),
+        launch_ms=timer(lambda: corr._launch(f1, f2, out)), plain_ms=timer(lambda: corr.corr49_plain(f1, f2)),
+        library_ms=None, bound=bound_ms(2 * (2 * c + 49) * b * h * w, 2 * 49 * c * b * h * w))
+    del f1, f2, out
+    b, c, h, w = 1, 64, MAIN_H, MAIN_W
+    img, flow = randn((b, c, h, w), 3, dev).to(bf), smooth_flow(b, h, w, dev).to(bf)
+    out = torch.empty_like(img)
+    rows["backwarp_bf16"] = dict(
+        shape=f"[{b},{c},{h},{w}] stride 1", ms=timer(lambda: warp.backwarp(img, flow)),
+        launch_ms=timer(lambda: warp._launch(img, flow, 1, out)),
+        plain_ms=timer(lambda: warp.backwarp_plain(img, flow)), library_ms=None,
+        bound=bound_ms(2 * (2 * c + 2) * b * h * w, 8 * c * b * h * w))
+    grid = pixel_grid(flow.float(), h, w).to(bf)
+    gs = timer(lambda: F.grid_sample(img, grid, mode="bilinear", padding_mode="zeros", align_corners=True))
+    log(f"  (F.grid_sample on the bf16 map with a bf16 grid, another function: {gs:.4f} ms  ({card}))")
+    del img, flow, out, grid
+    b, h, w = 1, MAIN_H, MAIN_W
+    img1, img2 = uniform((b, 3, h, w), 6, dev, 0, 1).to(bf), uniform((b, 3, h, w), 7, dev, 0, 1).to(bf)
+    flow = smooth_flow(b, h, w, dev).to(bf)
+    norm = torch.empty((b, 1, h, w), device=dev, dtype=bf)
+    rows["rgb_warp_norm_bf16"] = dict(
+        shape=f"[{b},3,{h},{w}]", ms=timer(lambda: rgb.rgb_warp_norm(img1, img2, flow)),
+        launch_ms=timer(lambda: rgb._launch(img1, img2, flow, norm)),
+        plain_ms=timer(lambda: rgb.rgb_warp_norm_plain(img1, img2, flow)), library_ms=None,
+        bound=bound_ms(2 * (3 + 3 + 2 + 1) * b * h * w, 27 * b * h * w))
     return rows
 
 
@@ -634,13 +944,16 @@ def reset_counts(ops) -> None:
     corr, warp, rgb, chain = ops
     corr.launches = warp.launches = rgb.launches = chain.launches = 0
     corr.bwd_launches = warp.bwd_launches = 0
+    corr.bf16_launches = warp.bf16_launches = rgb.bf16_launches = 0
 
 
 def read_counts(ops) -> dict:
+    """Launches per C entry point: the float32 forms, then the bf16 forms."""
     corr, warp, rgb, chain = ops
     return {"corr49": corr.launches, "backwarp": warp.launches, "rgb_warp_norm": rgb.launches,
             "conv_chain": chain.launches, "corr49_bwd": corr.bwd_launches,
-            "backwarp_bwd": warp.bwd_launches}
+            "backwarp_bwd": warp.bwd_launches, "corr49_bf16": corr.bf16_launches,
+            "backwarp_bf16": warp.bf16_launches, "rgb_warp_norm_bf16": rgb.bf16_launches}
 
 
 def run_training(dev, ops, card):
@@ -673,7 +986,7 @@ def run_training(dev, ops, card):
     torch.cuda.synchronize()
     counts = read_counts(ops)
     expected = {"corr49": 6, "backwarp": 11, "rgb_warp_norm": 6, "conv_chain": 0, "corr49_bwd": 6,
-                "backwarp_bwd": 11}
+                "backwarp_bwd": 11, **dict.fromkeys(BF16_KERNELS, 0)}
     if counts != expected:
         raise AssertionError(f"train step launches {counts}, expected {expected}")
     grads_k = {n: p.grad.clone() for n, p in state.model.named_parameters()}
@@ -784,7 +1097,7 @@ def run_training_v2(dev, ops, card):
     torch.cuda.synchronize()
     counts = read_counts(ops)
     expected = {"corr49": 5, "backwarp": 9, "rgb_warp_norm": 5, "conv_chain": 0, "corr49_bwd": 5,
-                "backwarp_bwd": 9}
+                "backwarp_bwd": 9, **dict.fromkeys(BF16_KERNELS, 0)}
     if counts != expected:
         raise AssertionError(f"piv v2 train step launches {counts}, expected {expected}")
     grads_k = {n: p.grad.clone() for n, p in state.model.named_parameters()}
@@ -935,14 +1248,17 @@ def main() -> int:
     ops = (correlation, warp, rgb_warp, conv_chain)
     log("phase 2: kernels against their plain versions")
     errs = check_kernels(dev, ops)
+    errs.update(check_bf16_kernels(dev, ops))
     log(f"  ({time.perf_counter() - t_start:.1f} s)")
 
     log("phase 3: estimate end to end")
     sl = run_slice(dev, ops)
+    log("  bf16 inference:")
+    sl_bf16 = run_bf16_slice(dev, ops, sl["models"])
     log(f"  ({time.perf_counter() - t_start:.1f} s)")
 
     log("phase 4: times")
-    rows = time_all(dev, ops, sl.pop("models"), card)
+    rows = time_all(dev, ops, sl.pop("models"), sl_bf16.pop("models"), card)
     log(f"  ({time.perf_counter() - t_start:.1f} s)")
 
     log("phase 5: training")
@@ -952,7 +1268,8 @@ def main() -> int:
 
     sources = {"corr49": "corr49.cu", "backwarp": "backwarp.cu", "rgb_warp_norm": "rgb_warp_norm.cu",
                "conv_chain": "conv_chain.cu", "backwarp_bwd": "backwarp_bwd.cu",
-               "corr49_bwd": "corr49_bwd.cu"}
+               "corr49_bwd": "corr49_bwd.cu", "corr49_bf16": "corr49.cu", "backwarp_bf16": "backwarp.cu",
+               "rgb_warp_norm_bf16": "rgb_warp_norm.cu"}
     replaces = {
         "corr49": "piv_liteflownet_tpu/ops/pallas_corr.py:66,162",
         "backwarp": "piv_liteflownet_tpu/ops/pallas_feat_warp.py:115",
@@ -961,14 +1278,19 @@ def main() -> int:
         "backwarp_bwd": "piv_liteflownet_tpu/ops/pallas_warp_vjp.py:119",
         # no TPU kernel: JAX takes the XLA VJP of the shift-stack there
         "corr49_bwd": "piv_liteflownet_tpu/ops/correlation.py:85",
+        # the bf16 forms of the same TPU kernels (their output in the input's dtype)
+        "corr49_bf16": "piv_liteflownet_tpu/ops/pallas_corr.py:66,162",
+        "backwarp_bf16": "piv_liteflownet_tpu/ops/pallas_feat_warp.py:115",
+        "rgb_warp_norm_bf16": "piv_liteflownet_tpu/ops/pallas_rgb_warp.py:119",
     }
-    paths = dict(sl["paths"])
+    paths = dict(sl["paths"], **sl_bf16["paths"])
     paths["train step piv v1 256^2 b8"] = tr["launches"]
     paths["train step piv v2 256^2 b8"] = tr2["launches"]
     # each kernel's own path: where its launches are counted
     own = {"corr49": PATH_V1, "backwarp": PATH_V1, "rgb_warp_norm": PATH_V1,
            "conv_chain": PATH_V2_CHAIN, "backwarp_bwd": "train step piv v1 256^2 b8",
-           "corr49_bwd": "train step piv v1 256^2 b8"}
+           "corr49_bwd": "train step piv v1 256^2 b8", "corr49_bf16": PATH_V1_BF16,
+           "backwarp_bf16": PATH_V1_BF16, "rgb_warp_norm_bf16": PATH_V1_BF16}
     kernels = [dict(
         name=name, route="cuda", source=f"piv_liteflownet_tpu_torch/csrc/{sources[name]}",
         replaces=replaces[name], launches=paths[own[name]][name],
@@ -976,7 +1298,7 @@ def main() -> int:
         launches_by_path={p: counts.get(name, 0) for p, counts in paths.items()},
         max_abs_err=errs[name], ms=r["ms"], plain_ms=r["plain_ms"], bound_ms=r["bound"][0],
         bound_by=r["bound"][1], library_ms=r["library_ms"],
-        **{k: r[k] for k in ("bound_f32_ms", "cases", "channel_scan") if k in r})
+        **{k: r[k] for k in ("launch_ms", "bound_f32_ms", "cases", "channel_scan") if k in r})
         for name, r in rows.items()]
     if len(kernels) != len(sources) or any(k["launches"] == 0 for k in kernels):
         raise AssertionError(f"a kernel never launched on its path: {paths}")

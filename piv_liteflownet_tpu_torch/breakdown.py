@@ -1,13 +1,14 @@
 """Where the device time of ``estimate`` or of a train step goes, from a ``torch.profiler`` trace.
 
     python -m piv_liteflownet_tpu_torch.breakdown [--size 1024] [--batch 1] [--iters 5] [--train]
-        [--version 1] [--conv_impl cudnn]
+        [--version 1] [--conv_impl cudnn] [--bf16]
 
 Runs PIV-LiteFlowNet-en (``--version`` 1) or PIV-LiteFlowNet2-en (2), seeded
 random weights, on a synthetic particle pair with the inputs on the card,
 traces ``--iters`` calls of ``estimate`` (or, with ``--train``, of the Adam
 train step with the piv loss; for version 2 the six-weight ``MultiScale``)
-after a warm-up, and prints per call: the device time of each group of CUDA kernels
+after a warm-up (``--bf16``: ``estimate`` of the model cast to bfloat16, the
+kernels' bf16 forms), and prints per call: the device time of each group of CUDA kernels
 (convs, the port's kernels, the optimizer, elementwise, resize, memory
 copies, other), the device busy time, the span from the first kernel's
 start to the last kernel's end, and the device idle share within that span,
@@ -92,15 +93,20 @@ def main(argv=None) -> int:
     parser.add_argument("--version", type=int, choices=[1, 2], default=1)
     parser.add_argument("--conv_impl", choices=["cudnn", "chain"], default="cudnn",
                         help="the NetE conv stacks of estimate: cuDNN, or the conv_chain kernel")
+    parser.add_argument("--bf16", action="store_true", help="estimate of the model in bfloat16")
     args = parser.parse_args(argv)
     if not torch.cuda.is_available():
         raise SystemExit("breakdown: needs a CUDA card")
+    if args.bf16 and args.train:
+        raise SystemExit("breakdown: bf16 training is not ported yet (ROADMAP.md)")
 
     from piv_liteflownet_tpu_torch import piv_liteflownet
     from piv_liteflownet_tpu_torch.inference import estimate
     from piv_liteflownet_tpu_torch.utils.synthetic import particle_pair
 
     model = piv_liteflownet(version=args.version, seed=0, conv_impl=args.conv_impl)
+    if args.bf16:
+        model = model.to(torch.bfloat16)
     shift = (2.5, -1.5)
     im1, im2 = particle_pair(args.batch, args.size, args.size, seed=0, shift=shift)
     t1, t2 = torch.from_numpy(im1).cuda(), torch.from_numpy(im2).cuda()
@@ -139,7 +145,7 @@ def main(argv=None) -> int:
         return 1
     out = summarize(kernels, args.iters)
     out.update(what="train step" if args.train else "estimate", version=args.version,
-               conv_impl=args.conv_impl, size=args.size, batch=args.batch, calls=args.iters, card=card)
+               conv_impl=args.conv_impl, dtype="bfloat16" if args.bf16 else "float32", size=args.size, batch=args.batch, calls=args.iters, card=card)
     print(json.dumps(out, indent=1), flush=True)
     return 0
 

@@ -4,6 +4,8 @@
 
 #include <cuda_runtime.h>
 
+#include "elem.cuh"
+
 struct BilinearTaps {
   int off[4];   // y*W + x of the corners (y0,x0) (y0,x0+1) (y0+1,x0) (y0+1,x0+1); -1 = outside
   float w[4];   // their weights, 0 outside
@@ -40,12 +42,13 @@ __device__ __forceinline__ BilinearTaps bilinear_taps(float x, float y, int H, i
   return t;
 }
 
-__device__ __forceinline__ float bilinear_sample(const float* __restrict__ plane,
-                                                 const BilinearTaps& t) {
+// The 4-tap sum over one plane of float or bf16 values, in f32.
+template <typename T>
+__device__ __forceinline__ float bilinear_sample(const T* __restrict__ plane, const BilinearTaps& t) {
   float v = 0.f;
 #pragma unroll
   for (int k = 0; k < 4; ++k) {
-    if (t.off[k] >= 0) v += t.w[k] * __ldg(plane + t.off[k]);
+    if (t.off[k] >= 0) v += t.w[k] * elem::load(plane + t.off[k]);
   }
   return v;
 }

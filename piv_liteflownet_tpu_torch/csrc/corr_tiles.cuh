@@ -22,12 +22,18 @@
 // one for the whole launch; the first block adds the launch's tile count to a
 // device counter so the caller can see which path ran (one plain add by one
 // thread per launch: no atomics).
+//
+// The forward has a bf16 form too (csrc/corr49.cu). A 16-byte chunk then holds 8
+// values, so the vector path needs W a multiple of 8, and the staged columns
+// start 8 to the left of the tile to keep each chunk aligned.
 
 #pragma once
 
 #include <cstdint>
 
 #include <cuda_runtime.h>
+
+#include "elem.cuh"
 
 namespace corr_tiles {
 
@@ -43,7 +49,7 @@ __device__ __forceinline__ uint32_t smem_addr(const void* p) {
 }
 
 // 16 bytes from src to dst, or 16 zero bytes when !ok (src is then not read).
-__device__ __forceinline__ void cp_async16(float* dst, const float* src, bool ok) {
+__device__ __forceinline__ void cp_async16(void* dst, const void* src, bool ok) {
   asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(smem_addr(dst)), "l"(src),
                "r"(ok ? 16 : 0));
 }
@@ -62,16 +68,12 @@ __device__ __forceinline__ void cp_async_wait() {
   asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
 }
 
-// v[0..11] = row[0..11] with three 16-byte shared-memory loads (row 16 bytes aligned).
-__device__ __forceinline__ void load_row(const float* row, float (&v)[ROWV]) {
+// v[0..11] = row[0..11] as f32 with three shared-memory loads: 16-byte ones in f32 (row 16
+// bytes aligned), 8-byte ones in bf16 (row 8 bytes aligned).
+template <typename T>
+__device__ __forceinline__ void load_row(const T* row, float (&v)[ROWV]) {
 #pragma unroll
-  for (int q = 0; q < ROWV / 4; ++q) {
-    const float4 t = *reinterpret_cast<const float4*>(row + 4 * q);
-    v[4 * q] = t.x;
-    v[4 * q + 1] = t.y;
-    v[4 * q + 2] = t.z;
-    v[4 * q + 3] = t.w;
-  }
+  for (int q = 0; q < ROWV / 4; ++q) elem::load4(row + 4 * q, v + 4 * q);
 }
 
 // Lets Kernel take `bytes` of dynamic shared memory on the current device (set once per
@@ -87,10 +89,11 @@ __host__ cudaError_t allow_smem(int bytes) {
   return err;
 }
 
-// Whether a launch may take the 16-byte path: rows of W floats and every tensor 16 bytes aligned.
-__host__ inline bool vector_path(int W, const void* a, const void* b, const void* c) {
-  return W % 4 == 0 && (reinterpret_cast<uintptr_t>(a) | reinterpret_cast<uintptr_t>(b) |
-                        reinterpret_cast<uintptr_t>(c)) % 16 == 0;
+// Whether a launch may take the 16-byte path: rows of W values a whole number of 16-byte chunks
+// (per_chunk values each: 4 f32, 8 bf16) and every tensor 16 bytes aligned.
+__host__ inline bool vector_path(int W, const void* a, const void* b, const void* c, int per_chunk = 4) {
+  return W % per_chunk == 0 && (reinterpret_cast<uintptr_t>(a) | reinterpret_cast<uintptr_t>(b) |
+                                reinterpret_cast<uintptr_t>(c)) % 16 == 0;
 }
 
 }  // namespace corr_tiles

@@ -1,10 +1,11 @@
 """The ``estimate()`` contract (port of ``piv_liteflownet_tpu/inference.py:estimate``).
 
-1. both frames are resized bilinearly (align_corners=False) to the next
-   multiple of 32;
-2. one eval forward gives the scaled flow, its convs in full float32;
+1. both frames are cast to the dtype of the model's parameters (float32, or
+   bfloat16 for the fast path) and resized bilinearly (align_corners=False)
+   to the next multiple of 32;
+2. one eval forward gives the scaled flow, float32 convs in full float32;
 3. the flow is resized back to the input size, u scaled by W_in/W_32 and v
-   by H_in/H_32.
+   by H_in/H_32, all in that dtype.
 
 Inputs and outputs keep the JAX package's NHWC layout.
 """
@@ -26,20 +27,25 @@ def adaptive_size(h: int, w: int, mult: int = 32) -> Tuple[int, int]:
     return int(math.ceil(h / mult) * mult), int(math.ceil(w / mult) * mult)
 
 
-def to_nchw(img, device: torch.device) -> torch.Tensor:
-    """``[B,H,W,C]`` numpy or tensor -> contiguous float32 ``[B,C,H,W]`` on ``device``."""
+def to_nchw(img, device: torch.device, dtype: torch.dtype = torch.float32) -> torch.Tensor:
+    """``[B,H,W,C]`` numpy or tensor -> contiguous ``[B,C,H,W]`` of ``dtype`` on ``device``."""
     t = img if isinstance(img, torch.Tensor) else torch.from_numpy(np.asarray(img, np.float32))
-    return t.to(device=device, dtype=torch.float32).permute(0, 3, 1, 2).contiguous()
+    return t.to(device=device, dtype=dtype).permute(0, 3, 1, 2).contiguous()
 
 
 @torch.no_grad()
 def estimate(model: LiteFlowNet, img1, img2, tensor: bool = False, ops: Ops = KERNEL_OPS):
     """Flow for one pair or a batch of pairs.
 
-    img1/img2: ``[H,W,3]`` or ``[B,H,W,3]`` float32 in [0, 1] (numpy or
-    torch). Returns ``[H,W,2]`` numpy for a single pair, else (or with
-    ``tensor=True``) a ``[B,H,W,2]`` torch tensor on the model's device.
-    ``ops`` selects the kernels (default) or their plain versions. The
+    img1/img2: ``[H,W,3]`` or ``[B,H,W,3]`` in [0, 1] (numpy or torch).
+    Everything runs in the dtype of the model's parameters, as in the JAX
+    package: float32, or bfloat16 after ``model.to(torch.bfloat16)`` (bf16
+    convs through cuDNN, which sums in float32; the kernels' bf16 forms).
+    Returns a ``[B,H,W,2]`` torch tensor of that dtype on the model's device
+    (with ``tensor=True`` or a batch), else an ``[H,W,2]`` numpy array: of
+    float32 for a bf16 model, holding the bf16 values exactly, because torch
+    exports no bf16 to numpy (JAX returns an ``ml_dtypes`` bf16 array).
+    ``ops`` selects the kernels (default) or their plain versions. float32
     convs run in full float32 whatever torch's TF32 flags say.
     """
     if tuple(img1.shape) != tuple(img2.shape):
@@ -50,8 +56,9 @@ def estimate(model: LiteFlowNet, img1, img2, tensor: bool = False, ops: Ops = KE
         img1, img2 = img1[None], img2[None]
     if len(img1.shape) != 4 or img1.shape[-1] != 3:
         raise ValueError(f"expected [H,W,3] or [B,H,W,3] frames, got {tuple(img1.shape)}")
-    device = next(model.parameters()).device
-    x1, x2 = to_nchw(img1, device), to_nchw(img2, device)
+    param = next(model.parameters())
+    device, dtype = param.device, param.dtype
+    x1, x2 = to_nchw(img1, device, dtype), to_nchw(img2, device, dtype)
     in_h, in_w = x1.shape[2], x1.shape[3]
     ah, aw = adaptive_size(in_h, in_w)
     with f32_convs():
@@ -61,4 +68,4 @@ def estimate(model: LiteFlowNet, img1, img2, tensor: bool = False, ops: Ops = KE
     flow = (flow * scale.view(1, 2, 1, 1)).permute(0, 2, 3, 1)
     if tensor or not single:
         return flow
-    return flow[0].cpu().numpy()
+    return flow[0].float().cpu().numpy()

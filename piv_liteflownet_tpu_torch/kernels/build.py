@@ -8,7 +8,9 @@ rebuilt when the hash of the sources or of the flags changes, and is built at
 first use: importing this module starts nothing.
 
 Each C function takes ``void*`` pointers, ``int`` sizes, the CUDA device index
-and the ``cudaStream_t`` to launch on, and returns ``cudaGetLastError()``.
+and the ``cudaStream_t`` to launch on, and returns ``cudaGetLastError()``. A
+kernel's float32 form is ``pivk_<name>_f32``, its bfloat16 form, where it has
+one, ``pivk_<name>_bf16``.
 """
 
 from __future__ import annotations
@@ -42,6 +44,9 @@ SIGNATURES = {
     "pivk_corr49_bwd_f32": (_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P),
     "pivk_conv_chain_f32": (_P, _P, _I, _P, _I, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P),
 }
+#: The bfloat16 forms take the arguments of their float32 forms.
+SIGNATURES.update({name.replace("_f32", "_bf16"): SIGNATURES[name] for name in
+                   ("pivk_corr49_f32", "pivk_backwarp_f32", "pivk_rgb_warp_norm_f32")})
 
 
 @dataclass(frozen=True)

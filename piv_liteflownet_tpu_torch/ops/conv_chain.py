@@ -105,10 +105,15 @@ def conv_chain(parts: Sequence[torch.Tensor], weights: Sequence[torch.Tensor],
                biases: Sequence[torch.Tensor], last_linear: bool = True) -> torch.Tensor:
     """The chain; the kernel on CUDA, :func:`conv_chain_plain` on the CPU. Forward only.
 
-    Raises ``RuntimeError`` when grad mode is on and an operand requires grad.
+    Raises ``RuntimeError`` when grad mode is on and an operand requires grad, and
+    ``NotImplementedError`` for a bfloat16 operand on both paths (the kernel has no bf16 form yet).
     """
     _check(parts, weights, biases)
     operands = [*parts, *weights, *biases]
+    if any(t.dtype == torch.bfloat16 for t in operands):
+        raise NotImplementedError(
+            "conv_chain has no bfloat16 form yet (ROADMAP.md, Queue 2 item 1): run a bf16 model "
+            "with conv_impl='cudnn'")
     if torch.is_grad_enabled() and any(t.requires_grad for t in operands):
         raise RuntimeError(
             "conv_chain is forward only and has no gradient: call it under torch.no_grad(), "

@@ -11,6 +11,10 @@ tensors (bound by bytes; one thread per pixel, the warped rgb never stored)
 and takes :func:`rgb_warp_norm_plain` for CPU tensors. It has no gradient on
 either path, as in JAX (``stop_gradient`` on the norm, and a zero tangent
 for the TPU kernel): its output never requires grad, whatever its inputs do.
+
+Both paths keep the operands' dtype, float32 or bfloat16 (JAX: output in
+img1's dtype). The kernel's bf16 form (``pivk_rgb_warp_norm_bf16``) keeps the
+warp and the squared sum in float32 and rounds once on store.
 """
 
 from __future__ import annotations
@@ -20,8 +24,10 @@ import torch
 from piv_liteflownet_tpu_torch import kernels
 from piv_liteflownet_tpu_torch.ops.warp import backwarp_plain
 
-#: Kernel launches made by :func:`rgb_warp_norm` (plain-path calls do not count).
+#: Kernel launches made by :func:`rgb_warp_norm` (plain-path calls do not count): the float32 form.
 launches = 0
+#: Launches of the kernel's bfloat16 form.
+bf16_launches = 0
 
 
 def rgb_warp_norm_plain(img1: torch.Tensor, img2: torch.Tensor, flow: torch.Tensor) -> torch.Tensor:
@@ -32,7 +38,8 @@ def rgb_warp_norm_plain(img1: torch.Tensor, img2: torch.Tensor, flow: torch.Tens
 def rgb_warp_norm(img1: torch.Tensor, img2: torch.Tensor, flow: torch.Tensor) -> torch.Tensor:
     """Occlusion norm of ``img1`` against ``img2`` warped by ``flow``; kernel on CUDA, plain on the CPU.
 
-    No gradient: the result is detached from the inputs on both paths.
+    All three float32 or all bfloat16; the result has their dtype. No gradient: the result is
+    detached from the inputs on both paths.
     """
     if (img1.dim() != 4 or img1.shape[1] != 3 or img2.shape != img1.shape
             or tuple(flow.shape) != (img1.shape[0], 2, *img1.shape[2:])):
@@ -41,19 +48,22 @@ def rgb_warp_norm(img1: torch.Tensor, img2: torch.Tensor, flow: torch.Tensor) ->
     if not kernels.on_cuda("rgb_warp_norm", img1, img2, flow):
         with torch.no_grad():
             return rgb_warp_norm_plain(img1, img2, flow)
-    global launches
+    global launches, bf16_launches
     b, _, h, w = img1.shape
     out = torch.empty((b, 1, h, w), device=img1.device, dtype=img1.dtype)
     if out.numel() == 0:
         return out
     with torch.no_grad():
         _launch(img1, img2, flow, out)
-    launches += 1
+    if img1.dtype == torch.bfloat16:
+        bf16_launches += 1
+    else:
+        launches += 1
     return out
 
 
 def _launch(img1: torch.Tensor, img2: torch.Tensor, flow: torch.Tensor, out: torch.Tensor) -> None:
     """The kernel call itself (a test can substitute a fake)."""
     b, _, h, w = img1.shape
-    kernels.launch("pivk_rgb_warp_norm_f32", "rgb_warp_norm", img1.device,
+    kernels.launch(kernels.entry("rgb_warp_norm", img1.dtype), "rgb_warp_norm", img1.device,
                    img1.data_ptr(), img2.data_ptr(), flow.data_ptr(), out.data_ptr(), b, h, w)

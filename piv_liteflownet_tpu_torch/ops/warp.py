@@ -19,6 +19,12 @@ reduces them there and flushes the window with vector reductions, any other
 tile scatters with global atomics and is counted in
 :func:`out_of_window_counter`. :func:`backwarp_bwd_plain` is its plain
 version.
+
+Both paths keep the map's dtype, float32 or bfloat16, as the JAX function
+does: sample points, floors and the validity test are float32, the bilinear
+weights are cast to the map's dtype. The kernel's bf16 form
+(``pivk_backwarp_bf16``) computes weights and sums in float32 and rounds once
+on store. bf16 has no backward kernel yet: its backward raises.
 """
 
 from __future__ import annotations
@@ -29,8 +35,10 @@ import torch
 
 from piv_liteflownet_tpu_torch import kernels
 
-#: Kernel launches made by :func:`backwarp` (plain-path calls do not count).
+#: Kernel launches made by :func:`backwarp` (plain-path calls do not count): the float32 form.
 launches = 0
+#: Launches of the kernel's bfloat16 form.
+bf16_launches = 0
 #: Launches of the backward kernel, made by the backward of :func:`backwarp` on CUDA.
 bwd_launches = 0
 
@@ -59,13 +67,14 @@ def _taps(img: torch.Tensor, flow: torch.Tensor, stride: int):
     """The four bilinear taps of every output pixel: ``(dy, dx, wgt_y, wgt_x, ok, idx)``.
 
     ``idx [B,1,h*w]`` is the flat index of the corner (clamped into the map;
-    ``ok`` says whether it is really inside), the weights are per pixel.
+    ``ok`` says whether it is really inside), the weights are per pixel, in the map's dtype
+    (the fractions taken in float32, then cast, as JAX ``gather_warp`` does).
     """
     b, _, h, w = img.shape
     ho, wo = flow.shape[2], flow.shape[3]
     x, y, x0, y0 = _corners(flow, stride)
-    wx = x - x0
-    wy = y - y0
+    wx = (x - x0).to(img.dtype)
+    wy = (y - y0).to(img.dtype)
     taps = []
     for dy, wgt_y in ((0, 1.0 - wy), (1, wy)):
         for dx, wgt_x in ((0, 1.0 - wx), (1, wx)):
@@ -79,7 +88,7 @@ def _taps(img: torch.Tensor, flow: torch.Tensor, stride: int):
 
 
 def backwarp_plain(img: torch.Tensor, flow: torch.Tensor, stride: int = 1) -> torch.Tensor:
-    """Plain PyTorch backwarp: a 4-tap bilinear gather with zeros outside the map."""
+    """Plain PyTorch backwarp: a 4-tap bilinear gather with zeros outside the map, in ``img``'s dtype."""
     b, c, h, w = img.shape
     ho, wo = flow.shape[2], flow.shape[3]
     flat = img.reshape(b, c, h * w)
@@ -175,20 +184,27 @@ class _Backwarp(torch.autograd.Function):
 
     @staticmethod
     def forward(ctx, img, flow, stride):
-        global launches
+        global launches, bf16_launches
         b, c = img.shape[:2]
         out = torch.empty((b, c, *flow.shape[2:]), device=img.device, dtype=img.dtype)
         ctx.stride = stride
         ctx.save_for_backward(img, flow)
         if out.numel():
             _launch(img, flow, stride, out)
-            launches += 1
+            if img.dtype == torch.bfloat16:
+                bf16_launches += 1
+            else:
+                launches += 1
         return out
 
     @staticmethod
     def backward(ctx, gout):
         global bwd_launches
         img, flow = ctx.saved_tensors
+        if img.dtype == torch.bfloat16:
+            raise NotImplementedError(
+                "backwarp has no bfloat16 backward kernel yet: bf16 training comes with the "
+                "bf16 backward kernels (ROADMAP.md, Queue 2 item 1)")
         gout = gout.contiguous()
         g_img = torch.empty_like(img)
         g_flow = torch.empty_like(flow)
@@ -202,7 +218,8 @@ class _Backwarp(torch.autograd.Function):
 def backwarp(img: torch.Tensor, flow: torch.Tensor, stride: int = 1) -> torch.Tensor:
     """Backwarp ``img`` by ``flow`` on the stride-``stride`` grid; kernel on CUDA, plain version on the CPU.
 
-    Differentiable in ``img`` and ``flow`` on both paths.
+    Both float32 or both bfloat16; the result has their dtype. Differentiable in ``img`` and
+    ``flow`` on both paths in float32; on CUDA a bfloat16 backward raises.
     """
     if img.dim() != 4 or flow.dim() != 4:
         raise ValueError("backwarp: img and flow must be [B,C,H,W] and [B,2,h,w]")
@@ -219,7 +236,7 @@ def backwarp(img: torch.Tensor, flow: torch.Tensor, stride: int = 1) -> torch.Te
 def _launch(img: torch.Tensor, flow: torch.Tensor, stride: int, out: torch.Tensor) -> None:
     """The kernel call itself (a test can substitute a fake)."""
     b, c, h, w = img.shape
-    kernels.launch("pivk_backwarp_f32", "backwarp", img.device,
+    kernels.launch(kernels.entry("backwarp", img.dtype), "backwarp", img.device,
                    img.data_ptr(), flow.data_ptr(), out.data_ptr(),
                    b, c, h, w, out.shape[2], out.shape[3], stride)
 

@@ -3,7 +3,8 @@
 The slice's subset of the JAX package's ``run.py`` flags: ``-m/--model``,
 ``-v/--version``, ``-p/--is_pair``, ``-i/--input`` (several), ``-o/--output``,
 ``-s/--start``, ``-n/--num_images``, ``--batch_size``, ``--params`` (a torch
-state dict file, or a ``.npz`` of JAX params) and ``--cpu``.
+state dict file, or a ``.npz`` of JAX params), ``--bf16`` (the model in
+bfloat16: the fast path; the ``.flo`` files stay float32) and ``--cpu``.
 
 Output layout per input directory, as in the JAX package:
 ``<output>/<netname>/<dirbase>[-<start>_<n>]/flow[/left|right]/*_out.flo``
@@ -43,6 +44,8 @@ def build_parser() -> argparse.ArgumentParser:
                         help="Weights: a torch state dict file, or .npz of JAX params. "
                              "Defaults to models/pretrain_torch/<netname>.paramOnly if present.")
     parser.add_argument("--batch_size", type=int, default=2, help="Image pairs per forward.")
+    parser.add_argument("--bf16", action="store_true",
+                        help="Run params and activations in bfloat16 (the fast path); .flo files stay float32.")
     parser.add_argument("--cpu", action="store_true", help="Run on the CPU instead of the card.")
     return parser
 
@@ -81,7 +84,7 @@ def run_dir(model, inputdir: str, savedir: str, is_pair: bool = False, start: in
 
     def flush():
         flows = estimate(model, np.stack([b[0] for b in batch]),
-                         np.stack([b[1] for b in batch])).cpu().numpy()
+                         np.stack([b[1] for b in batch])).float().cpu().numpy()
         for flow, (_, _, name) in zip(flows, batch):
             out = flowname_modifier(name, savedir, pair=False)
             write_flow(flow, out)
@@ -125,6 +128,9 @@ def main(argv=None) -> None:
     if weights is None:
         print("WARNING: no weight file found or given; using a seeded random init", flush=True)
     model = factory(weights, version=args.version, device=device)
+    if args.bf16:
+        model = model.to(torch.bfloat16)
+        print("bfloat16 fast path enabled", flush=True)
     print(f"Running on {next(model.parameters()).device}", flush=True)
     for imdir in args.input:
         savedir, flodir, argsname = output_dirs(args, imdir)
