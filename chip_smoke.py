@@ -8,8 +8,9 @@ Run from the repository root, with no arguments:
 It drives PIV-LiteFlowNet-en version 1 inference and training, and
 PIV-LiteFlowNet2-en and Hui LiteFlowNet2 (version 2) inference and training,
 also with the NetE conv stacks through the ``conv_chain`` kernel
-(``conv_impl="chain"``) and in bf16 (the models cast with
-``.to(torch.bfloat16)``), through the port's entry points (``piv_liteflownet``,
+(``conv_impl="chain"``) and in bf16 (inference: the models cast with
+``.to(torch.bfloat16)``; training: ``compute_dtype=torch.bfloat16``),
+through the port's entry points (``piv_liteflownet``,
 ``hui_liteflownet``, ``estimate``, ``write_flow``/``read_flow``;
 ``make_optimizer``, ``make_train_step``, ``Train``, ``resume``) at full width
 with seeded random weights, in five phases; each raises on failure, and then
@@ -45,7 +46,13 @@ the script exits non-zero without the final line.
    held to ``tile_plan`` and both paths required): each held to the
    float32 plain version on the bf16 inputs upcast to float32, then rounded
    to bf16, within one bf16 ulp of that reference plus the float32 kernel's
-   own tolerance, elementwise.
+   own tolerance, elementwise. Then, the same way through autograd, the bf16
+   forms of the two backward kernels: ``backwarp_bwd`` at the level-1 shape
+   of a 256^2 batch-8 training step at both strides with a smooth and a 30 px
+   random flow and at odd sizes (its out-of-window count held to
+   ``tile_windows``, both paths required), ``corr49_bwd`` at the training
+   step's level shapes and its edge shapes, widths a multiple of 4 but not of
+   8 among them (its edge count held to ``tile_plan``, both paths required).
 3. The slices end to end on synthetic particle-image pairs: ``estimate`` of
    piv v1, piv v2 and hui v2, with cuDNN convs and with the conv chain, at
    1024^2 b1, 256^2 b4 and 250x300 b1 (through the /32 resize). Each path is
@@ -96,14 +103,27 @@ the script exits non-zero without the final line.
    splits their time into a per-launch and a per-channel part.
    Then the same check and times (10 steps) for piv v2 with the six-weight
    ``MultiScale``, built with ``conv_impl="chain"``: training never launches
-   the forward-only chain.
+   the forward-only chain. Then bf16 training, ``make_train_step(...,
+   compute_dtype=torch.bfloat16)``, for piv v1 and v2 on the same batches:
+   one step through the kernels (the bf16 training path: counts set to 0
+   just before and read just after; only the ``_bf16`` forms, forward and
+   backward, may launch) and one through the plain ops, both held to the
+   float32 plain step's loss and gradients (``grad_relation``: the gradient's
+   relative L2 error as a whole, in the median parameter and at the worst
+   parameter within twice the plain bf16 path's; the loss within twice the
+   plain path's error plus 1e-3), the loss falling over the same steps as
+   the float32 phase, ms/step (median, p90) and peak memory beside the
+   float32 step's; and the two bf16 backward kernels alone beside their
+   float32 forms, their plain version in bf16 and their bf16 bound (for
+   ``backwarp_bwd`` also the bound of its float32-workspace design).
 
 The line before the last is ``{"kernels": [...]}`` (``launches``: per call of
 each kernel's own path, the piv v1 estimate for the forward kernels, the
 piv v2 chain estimate for ``conv_chain``, the piv v1 train step for the
-backward ones, the piv v1 bf16 estimate for the ``_bf16`` forms;
-``launches_per_train_step`` of the piv v1 step and ``launches_by_path`` for
-all nine C entry points); the last line is
+backward ones, the piv v1 bf16 estimate for the forward ``_bf16`` forms, the
+piv v1 bf16 train step for the backward ones; ``launches_per_train_step`` of
+the float32 piv v1 step and ``launches_by_path`` for all eleven C entry
+points); the last line is
 ``{"ok": true, "device": {...}}``. Without a CUDA device it exits 2 and
 prints no result.
 """
@@ -380,7 +400,7 @@ def check_bf16_kernels(dev, ops):
     kernel's own tolerance, elementwise."""
     corr, warp, rgb, _ = ops
     bf = torch.bfloat16
-    errs = dict.fromkeys(BF16_KERNELS, 0.0)
+    errs = dict.fromkeys(BF16_KERNELS + BF16_BWD_KERNELS, 0.0)
     failures = []
 
     def hold(name, what, got, want_f32, f32_tol):
@@ -457,9 +477,96 @@ def check_bf16_kernels(dev, ops):
         torch.cuda.synchronize()
         hold("rgb_warp_norm_bf16", f"[{b},3,{h},{w}] |flow|<={mag:g}", got,
              rgb.rgb_warp_norm_plain(img1.float(), img2.float(), flow.float()), WARP_ATOL)
+        del img1, img2, flow, got
+    seed = check_bf16_backward(dev, ops, hold, failures, seed)
     if failures:
         raise AssertionError(f"bf16 kernels disagree with their references: {failures}")
     return errs
+
+
+def check_bf16_backward(dev, ops, hold, failures, seed):
+    """The bf16 forms of the two backward kernels through autograd, against the float32 plain
+    backward on the bf16 inputs upcast (``hold``): ``backwarp_bwd_bf16`` at the level-1 shape of a
+    256^2 batch-8 training step at both strides with a smooth and a 30 px random flow and at odd
+    sizes, its out-of-window count held to ``tile_windows`` and both paths required;
+    ``corr49_bwd_bf16`` at the training step's level shapes and at edge shapes (odd widths,
+    widths a multiple of 4 but not of 8, maps smaller than the window, a tensor 2 bytes off 16),
+    its edge count held to ``tile_plan`` and both paths required."""
+    corr, warp, _, _ = ops
+    bf = torch.bfloat16
+    counter = warp.out_of_window_counter(dev)
+    tiles = {"window": 0, "out of window": 0}
+    warp_cases = [(TRAIN_B, 64, TRAIN_H, TRAIN_W, s, kind) for s in (1, 2) for kind in ("smooth", 30.0)]
+    warp_cases += [(TRAIN_B, 64, TRAIN_H // 2, TRAIN_W // 2, 2, 8.0), (TRAIN_B, 96, TRAIN_H // 8, TRAIN_W // 8, 1, 8.0),
+                   (2, 5, 37, 53, 1, 30.0), (2, 7, 37, 53, 2, 30.0)]
+    for b, c, h, w, s, mag in warp_cases:
+        seed += 1
+        img = randn((b, c, h, w), seed, dev).to(bf).requires_grad_()
+        ho, wo = warp.out_hw(h, w, s)
+        flow = (smooth_flow(b, ho, wo, dev) if mag == "smooth"
+                else uniform((b, 2, ho, wo), seed + 1000, dev, -mag, mag)).to(bf).requires_grad_()
+        gout = randn((b, c, ho, wo), seed + 2000, dev).to(bf)
+        counter.zero_()
+        warp.backwarp(img, flow, s).backward(gout)
+        torch.cuda.synchronize()
+        rule = warp.tile_windows(flow.detach().float(), h, w, s)
+        n_out, n_rule = int(counter.item()), int((~rule.fits).sum())
+        tiles["out of window"] += n_out
+        tiles["window"] += rule.fits.numel() - n_out
+        if n_out != n_rule:
+            failures.append(f"backwarp_bwd_bf16 [{b},{c},{h},{w}] stride {s}: {n_out} tiles out of the "
+                            f"window, the tile rule says {n_rule}")
+        want_img, want_flow = warp.backwarp_bwd_plain(img.detach().float(), flow.detach().float(), gout.float(), s)
+        tol = BWD_RTOL * max(float(want_img.abs().max()), float(want_flow.abs().max()), 1.0)
+        what = (f"[{b},{c},{h},{w}] stride {s} " + ("smooth flow" if mag == "smooth" else f"|flow|<={mag:g}")
+                + f", {n_out}/{rule.fits.numel()} out")
+        hold("backwarp_bwd_bf16", "g_img " + what, img.grad, want_img, tol)
+        hold("backwarp_bwd_bf16", "g_flow " + what, flow.grad, want_flow, tol)
+        del img, flow, gout, want_img, want_flow, rule
+    log(f"  backwarp_bwd_bf16 tiles over these cases: {tiles} (each count equal to ops/warp.py:tile_windows)")
+    if not all(tiles.values()):
+        failures.append(f"backwarp_bwd_bf16: a path of the kernel never ran: {tiles}")
+    edge_counter = corr.edge_tile_counter(dev)
+    corr_tiles = {"vector": 0, "edge": 0}
+    corr_cases = []
+    for lv, (h, w), c in level_shapes(TRAIN_H, TRAIN_W):
+        s = 2 if lv < 4 else 1
+        corr_cases.append((TRAIN_B, c, -(-h // s), -(-w // s), True))
+    corr_cases += [(2, 3, 37, 53, True), (1, 192, 8, 8, True), (2, 5, 2, 3, True), (1, 1, 1, 1, True),
+                   (1, 4, 3, 12, True), (2, 64, 64, 36, True), (1, 8, 16, 32, False)]
+    for b, c, h, w, aligned in corr_cases:
+        seed += 1
+        n = b * c * h * w
+        if aligned:
+            f1, f2 = randn((b, c, h, w), seed, dev).to(bf), randn((b, c, h, w), seed + 1000, dev).to(bf)
+        else:
+            base = randn((2 * n + 1,), seed, dev).to(bf)
+            f1, f2 = base[1:1 + n].view(b, c, h, w), base[1 + n:].view(b, c, h, w)
+        f1, f2 = f1.requires_grad_(), f2.requires_grad_()
+        g = randn((b, 49, h, w), seed + 2000, dev).to(bf)
+        out = corr.corr49(f1, f2)
+        torch.cuda.synchronize()
+        edge_counter.zero_()
+        out.backward(g)
+        torch.cuda.synchronize()
+        plan = corr.tile_plan(b, h, w, backward=True, aligned=aligned, dtype=bf)
+        n_edge = int(edge_counter.item())
+        corr_tiles["edge"] += n_edge
+        corr_tiles["vector"] += plan.n_tiles - n_edge
+        if n_edge != (plan.n_tiles if plan.edge else 0) or corr.uses_edge_path(f1, f2, g) != plan.edge:
+            failures.append(f"corr49_bwd_bf16 [{b},{c},{h},{w}]: {n_edge} edge-path tiles, the tile rule "
+                            f"says {plan.n_tiles if plan.edge else 0}")
+        want1, want2 = corr.corr49_bwd_plain(f1.detach().float(), f2.detach().float(), g.float())
+        tol = BWD_RTOL * max(float(want1.abs().max()), float(want2.abs().max()), 1.0)
+        what = f"[{b},{c},{h},{w}]{'' if aligned else ' 2 bytes off'}, {n_edge}/{plan.n_tiles} edge"
+        hold("corr49_bwd_bf16", "g_f1 " + what, f1.grad, want1, tol)
+        hold("corr49_bwd_bf16", "g_f2 " + what, f2.grad, want2, tol)
+        del f1, f2, g, out, want1, want2
+    log(f"  corr49_bwd_bf16 tiles over these cases: {corr_tiles} (each edge count equal to "
+        f"ops/correlation.py:tile_plan)")
+    if not all(corr_tiles.values()):
+        failures.append(f"corr49_bwd_bf16: a path of the kernel never ran: {corr_tiles}")
+    return seed
 
 
 # -- phase 3: the slice end to end -------------------------------------------------------
@@ -491,6 +598,7 @@ SLICE_CASES = [
 ]
 FWD_KERNELS = ("corr49", "backwarp", "rgb_warp_norm", "conv_chain")
 BF16_KERNELS = ("corr49_bf16", "backwarp_bf16", "rgb_warp_norm_bf16")
+BF16_BWD_KERNELS = ("backwarp_bwd_bf16", "corr49_bwd_bf16")
 PATH_V1 = "estimate piv v1 1024^2 b1"
 PATH_V2_CHAIN = "estimate piv v2 conv_impl=chain 1024^2 b1"
 
@@ -527,7 +635,7 @@ def run_slice(dev, ops):
             paths[PATH_V1] = all_counts
         if (key, b, h) == (("piv", 2, "chain"), 1, MAIN_H):
             paths[PATH_V2_CHAIN] = all_counts
-        if counts != expected or any(all_counts[k] for k in BF16_KERNELS):
+        if counts != expected or any(v for k, v in all_counts.items() if k.endswith("_bf16")):
             raise AssertionError(f"{what}: launches {all_counts} per forward, expected {expected} "
                                  f"and no bf16 form")
         if tuple(flow.shape) != (b, h, w, 2) or not bool(torch.isfinite(flow).all()):
@@ -625,7 +733,7 @@ def run_bf16_slice(dev, ops, f32_models):
         if (key, b, h) == (("piv", 1), 1, MAIN_H):
             paths[PATH_V1_BF16] = counts
         got = tuple(counts[k] for k in BF16_KERNELS)
-        f32_launched = {k: v for k, v in counts.items() if k not in BF16_KERNELS and v}
+        f32_launched = {k: v for k, v in counts.items() if not k.endswith("_bf16") and v}
         if got != expected or f32_launched:
             raise AssertionError(f"{what}: launches {counts}, expected bf16 {expected} and no float32 form")
         if (flow.dtype != bf or tuple(flow.shape) != (b, h, w, 2)
@@ -945,6 +1053,7 @@ def reset_counts(ops) -> None:
     corr.launches = warp.launches = rgb.launches = chain.launches = 0
     corr.bwd_launches = warp.bwd_launches = 0
     corr.bf16_launches = warp.bf16_launches = rgb.bf16_launches = 0
+    corr.bwd_bf16_launches = warp.bwd_bf16_launches = 0
 
 
 def read_counts(ops) -> dict:
@@ -953,7 +1062,29 @@ def read_counts(ops) -> dict:
     return {"corr49": corr.launches, "backwarp": warp.launches, "rgb_warp_norm": rgb.launches,
             "conv_chain": chain.launches, "corr49_bwd": corr.bwd_launches,
             "backwarp_bwd": warp.bwd_launches, "corr49_bf16": corr.bf16_launches,
-            "backwarp_bf16": warp.bf16_launches, "rgb_warp_norm_bf16": rgb.bf16_launches}
+            "backwarp_bf16": warp.bf16_launches, "rgb_warp_norm_bf16": rgb.bf16_launches,
+            "backwarp_bwd_bf16": warp.bwd_bf16_launches, "corr49_bwd_bf16": corr.bwd_bf16_launches}
+
+
+def steps_on_one_batch(dev, step, state, batch, steps: int):
+    """3 warm-up steps, then ``steps`` synchronised steps timed on the host clock, all on one
+    batch: (state, the loss of every step, ms of each timed step, peak device memory of the
+    timed steps)."""
+    losses = []
+    for _ in range(3):
+        state, metrics = step(state, *batch)
+        losses.append(float(metrics["loss"]))
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats(dev)
+    samples = []
+    for _ in range(steps):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        state, metrics = step(state, *batch)
+        torch.cuda.synchronize()
+        samples.append((time.perf_counter() - t0) * 1e3)
+        losses.append(float(metrics["loss"]))
+    return state, losses, samples, torch.cuda.max_memory_allocated(dev)
 
 
 def run_training(dev, ops, card):
@@ -986,7 +1117,7 @@ def run_training(dev, ops, card):
     torch.cuda.synchronize()
     counts = read_counts(ops)
     expected = {"corr49": 6, "backwarp": 11, "rgb_warp_norm": 6, "conv_chain": 0, "corr49_bwd": 6,
-                "backwarp_bwd": 11, **dict.fromkeys(BF16_KERNELS, 0)}
+                "backwarp_bwd": 11, **dict.fromkeys(BF16_KERNELS + BF16_BWD_KERNELS, 0)}
     if counts != expected:
         raise AssertionError(f"train step launches {counts}, expected {expected}")
     grads_k = {n: p.grad.clone() for n, p in state.model.named_parameters()}
@@ -1008,26 +1139,14 @@ def run_training(dev, ops, card):
             worst, worst_name = rel, n
     if not abs(loss_k - loss_p) <= 1e-5 * abs(loss_p):
         raise AssertionError(f"train loss kernels {loss_k} vs plain ops {loss_p}")
+    plain_grads = {n: p.grad.clone() for n, p in plain_state.model.named_parameters()}
     del plain_state, plain_step, grads_k
     log(f"  train step {TRAIN_H}x{TRAIN_W} b{TRAIN_B}: launches {counts}; loss kernels {loss_k:.6f} plain {loss_p:.6f}; "
         f"grads within tolerance, worst max|dg|/max|g| {worst:.3e} ({worst_name})")
 
     # repeated steps on the one batch: finite, falling loss; ms/step
-    losses = [loss_k]
-    for _ in range(3):
-        state, metrics = step(state, *batch)
-        losses.append(float(metrics["loss"]))
-    torch.cuda.synchronize()
-    torch.cuda.reset_peak_memory_stats(dev)
-    samples = []
-    for _ in range(TRAIN_STEPS):
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        state, metrics = step(state, *batch)
-        torch.cuda.synchronize()
-        samples.append((time.perf_counter() - t0) * 1e3)
-        losses.append(float(metrics["loss"]))
-    peak = torch.cuda.max_memory_allocated(dev)
+    state, losses, samples, peak = steps_on_one_batch(dev, step, state, batch, TRAIN_STEPS)
+    losses.insert(0, loss_k)
     if not all(np.isfinite(losses)):
         raise AssertionError(f"non-finite training loss: {losses}")
     if not np.mean(losses[-5:]) < losses[0]:
@@ -1066,7 +1185,8 @@ def run_training(dev, ops, card):
             raise AssertionError("the restored checkpoint differs from the state in memory")
         log(f"  Train: 2 epochs of 2 steps + validation, checkpoints {names}; resume from backup_2 "
             f"restores params, Adam moments and step {fresh.step} exactly")
-    return {"launches": counts, "ms_step": med, "p90": p90, "peak": peak}
+    return {"launches": counts, "ms_step": med, "p90": p90, "peak": peak, "loss": loss_p,
+            "plain_grads": plain_grads}
 
 
 def run_training_v2(dev, ops, card):
@@ -1097,7 +1217,7 @@ def run_training_v2(dev, ops, card):
     torch.cuda.synchronize()
     counts = read_counts(ops)
     expected = {"corr49": 5, "backwarp": 9, "rgb_warp_norm": 5, "conv_chain": 0, "corr49_bwd": 5,
-                "backwarp_bwd": 9, **dict.fromkeys(BF16_KERNELS, 0)}
+                "backwarp_bwd": 9, **dict.fromkeys(BF16_KERNELS + BF16_BWD_KERNELS, 0)}
     if counts != expected:
         raise AssertionError(f"piv v2 train step launches {counts}, expected {expected}")
     grads_k = {n: p.grad.clone() for n, p in state.model.named_parameters()}
@@ -1113,20 +1233,9 @@ def run_training_v2(dev, ops, card):
     loss_k, loss_p = float(metrics["loss"]), float(plain_metrics["loss"])
     if not abs(loss_k - loss_p) <= 1e-5 * abs(loss_p):
         raise AssertionError(f"piv v2 train loss kernels {loss_k} vs plain ops {loss_p}")
+    plain_grads = {n: p.grad.clone() for n, p in plain_state.model.named_parameters()}
     del plain_state, plain_step, grads_k
-    for _ in range(3):
-        state, metrics = step(state, *batch)
-    torch.cuda.synchronize()
-    torch.cuda.reset_peak_memory_stats(dev)
-    samples, losses = [], []
-    for _ in range(TRAIN_STEPS_V2):
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        state, metrics = step(state, *batch)
-        torch.cuda.synchronize()
-        samples.append((time.perf_counter() - t0) * 1e3)
-        losses.append(float(metrics["loss"]))
-    peak = torch.cuda.max_memory_allocated(dev)
+    state, losses, samples, peak = steps_on_one_batch(dev, step, state, batch, TRAIN_STEPS_V2)
     if not all(np.isfinite(losses)):
         raise AssertionError(f"non-finite piv v2 training loss: {losses}")
     med, p90 = np.percentile(samples, [50, 90])
@@ -1136,7 +1245,163 @@ def run_training_v2(dev, ops, card):
     log(f"  piv v2 train step {TRAIN_H}x{TRAIN_W} b{TRAIN_B}: {med:.3f} ms/step median, p90 {p90:.3f} "
         f"({TRAIN_STEPS_V2} steps), {1e3 * TRAIN_B / med:.2f} samples/s; peak memory "
         f"{peak / 2**30:.3f} GiB ({card})")
-    return {"launches": counts, "ms_step": med, "p90": p90, "peak": peak}
+    return {"launches": counts, "ms_step": med, "p90": p90, "peak": peak, "loss": loss_p,
+            "plain_grads": plain_grads}
+
+
+PATH_TRAIN_V1_BF16 = "train step piv v1 256^2 b8 bf16"
+
+
+def run_training_bf16(dev, ops, card, version, f32):
+    """The bf16 train step (``compute_dtype=torch.bfloat16``) of piv v1 (piv loss) or v2
+    (six-weight MultiScale) at 256^2 b8 on the batch of the float32 phase: one step through the
+    kernels (counts set to 0 just before and read just after: only the ``_bf16`` forms, forward
+    and backward), one through the plain ops from the same weights, both held to the float32
+    plain step's loss and gradients (``grad_relation``); then steps on the one batch, whose loss
+    must be finite and fall, timed beside the float32 step, with the peak device memory."""
+    from piv_liteflownet_tpu_torch.models.liteflownet import KERNEL_OPS, PLAIN_OPS
+    from piv_liteflownet_tpu_torch.parallel.train_step import TrainState, make_train_step
+    from piv_liteflownet_tpu_torch.training.loss import piv_loss, v2_multiscale
+    from piv_liteflownet_tpu_torch.training.optim import make_optimizer
+    from piv_liteflownet_tpu_torch.training.precision import grad_relation
+    from piv_liteflownet_tpu_torch.utils.synthetic import particle_pair
+
+    shift = (2.5, -1.5)
+    im1, im2 = particle_pair(TRAIN_B, TRAIN_H, TRAIN_W, seed=20 if version == 1 else 21, shift=shift)
+    target = np.empty((TRAIN_B, TRAIN_H, TRAIN_W, 2), np.float32)
+    target[...] = shift
+    batch = tuple(torch.from_numpy(a).to(dev) for a in (im1, im2, target))
+
+    def build(ops_):
+        model = build_model("piv", version, "cudnn" if version == 1 else "chain")
+        opt = make_optimizer(model, model.cfg.lowest_level)
+        loss_obj = piv_loss() if version == 1 else v2_multiscale()
+        return TrainState(model, opt), make_train_step(model.cfg, loss_obj, opt, ops=ops_,
+                                                       compute_dtype=torch.bfloat16)
+
+    state, step = build(KERNEL_OPS)
+    torch.cuda.synchronize()
+    reset_counts(ops)
+    state, metrics = step(state, *batch)
+    torch.cuda.synchronize()
+    counts = read_counts(ops)
+    fwd = (6, 11, 6) if version == 1 else (5, 9, 5)
+    expected = dict(dict.fromkeys(counts, 0), corr49_bf16=fwd[0], backwarp_bf16=fwd[1],
+                    rgb_warp_norm_bf16=fwd[2], backwarp_bwd_bf16=fwd[1], corr49_bwd_bf16=fwd[0])
+    if counts != expected:
+        raise AssertionError(f"piv v{version} bf16 train step launches {counts}, expected {expected}")
+    grads_k = {n: p.grad.clone() for n, p in state.model.named_parameters()}
+    if any(p.dtype != torch.float32 or p.grad.dtype != torch.float32 for p in state.model.parameters()):
+        raise AssertionError("the bf16 step left a parameter or gradient that is not float32")
+    plain_state, plain_step = build(PLAIN_OPS)
+    _, plain_metrics = plain_step(plain_state, *batch)
+    torch.cuda.synchronize()
+    grads_p = {n: p.grad.clone() for n, p in plain_state.model.named_parameters()}
+    del plain_state, plain_step
+    loss_k, loss_p, loss_f32 = float(metrics["loss"]), float(plain_metrics["loss"]), f32["loss"]
+    loss_tol = 2 * abs(loss_p - loss_f32) + 1e-3 * abs(loss_f32)
+    if not abs(loss_k - loss_f32) <= loss_tol:
+        raise AssertionError(f"piv v{version} bf16 loss kernels {loss_k}, plain {loss_p}, float32 {loss_f32}")
+    relation = grad_relation(grads_k, grads_p, f32["plain_grads"])
+    del grads_k, grads_p
+    for part, (err, ref_err, bound) in relation.items():
+        if not err <= bound:
+            raise AssertionError(f"piv v{version} bf16 gradients, {part}: kernels {err:.4e}, plain ops "
+                                 f"{ref_err:.4e}, bound {bound:.4e}")
+    log(f"  piv v{version} bf16 train step {TRAIN_H}x{TRAIN_W} b{TRAIN_B}: launches {counts}; loss kernels "
+        f"{loss_k:.6f} plain {loss_p:.6f} float32 {loss_f32:.6f} (tol {loss_tol:.3e}); gradient error against "
+        f"the float32 plain step, kernels / plain bf16 / bound: "
+        + ", ".join(f"{part} {e:.3e} / {r:.3e} / {bd:.3e}" for part, (e, r, bd) in relation.items()))
+
+    steps = TRAIN_STEPS if version == 1 else TRAIN_STEPS_V2
+    state, losses, samples, peak = steps_on_one_batch(dev, step, state, batch, steps)
+    losses.insert(0, loss_k)
+    if not all(np.isfinite(losses)):
+        raise AssertionError(f"non-finite bf16 training loss: {losses}")
+    if not np.mean(losses[-5:]) < losses[0]:
+        raise AssertionError(f"bf16 training loss did not fall on one batch: {losses}")
+    med, p90 = np.percentile(samples, [50, 90])
+    log(f"  piv v{version} bf16 loss over {len(losses)} steps on one batch: {losses[0]:.6f} -> {losses[-1]:.6f} "
+        f"(mean of the last 5 {np.mean(losses[-5:]):.6f})")
+    log(f"  piv v{version} bf16 train step {TRAIN_H}x{TRAIN_W} b{TRAIN_B}: {med:.3f} ms/step median, p90 {p90:.3f} "
+        f"({steps} steps), {1e3 * TRAIN_B / med:.2f} samples/s; peak memory {peak / 2**30:.3f} GiB; float32 "
+        f"step in this call {f32['ms_step']:.3f} ms, p90 {f32['p90']:.3f}, peak {f32['peak'] / 2**30:.3f} GiB "
+        f"(bf16/f32 {med / f32['ms_step']:.3f})  ({card})")
+    del state, step
+    return {"launches": counts, "ms_step": med, "p90": p90, "peak": peak, "relation": relation}
+
+
+def time_bf16_backward(dev, ops, timer, card, f32_rows):
+    """The bf16 forms of the backward kernels alone (the wrapper's ``_launch_bwd``, as the float32
+    rows) at their level-1 shapes of a 256^2 batch-8 training step, beside the float32 form's time
+    in this call, the plain version in bf16, and two bounds: the function's bf16 bytes, and for
+    ``backwarp_bwd_bf16`` those of its workspace design (the f32 workspace written and read once
+    besides the bf16 inputs and outputs). No single PyTorch call computes their function in bf16:
+    ``grid_sampler_2d_backward`` on a bf16 map takes a bf16 grid, whose normalised coordinates
+    are coarser than a pixel at 256."""
+    corr, warp, _, _ = ops
+    bf = torch.bfloat16
+    rows = {}
+    b, c, h, w = TRAIN_B, 64, TRAIN_H, TRAIN_W
+    img = randn((b, c, h, w), 31, dev).to(bf)
+    g_img = torch.empty_like(img)
+    cases = []
+    for s, kind in ((1, "smooth"), (1, 8.0), (2, "smooth")):
+        ho, wo = warp.out_hw(h, w, s)
+        flow = (smooth_flow(b, ho, wo, dev) if kind == "smooth"
+                else uniform((b, 2, ho, wo), 33, dev, -kind, kind)).to(bf)
+        gout = randn((b, c, ho, wo), 32 + s, dev).to(bf)
+        g_flow = torch.empty_like(flow)
+        n_in, n_out, n_flow = b * c * h * w, b * c * ho * wo, b * 2 * ho * wo
+        nbytes = 2 * (2 * n_in + n_out + 2 * n_flow)          # img, g_img, gout, flow, g_flow in bf16
+        nbytes_ws = nbytes + 4 * n_in + 4 * n_in              # + the f32 workspace written and read once
+        case = dict(shape=f"[{b},{c},{h},{w}] stride {s}",
+                    flow="smooth" if kind == "smooth" else f"random |flow|<={kind:g}",
+                    ms=timer(lambda: warp._launch_bwd(img, flow, gout, s, g_img, g_flow)),
+                    bound=bound_ms(nbytes, 24 * n_out), bound_workspace_ms=bound_ms(nbytes_ws, 24 * n_out)[0])
+        f32_case = next(x for x in f32_rows["backwarp_bwd"]["cases"] if x["shape"] == case["shape"]
+                        and x["flow"] == case["flow"])
+        case["f32_ms"] = f32_case["ms"]
+        if s == 1 and kind == "smooth":
+            case["plain_ms"] = timer(lambda: warp.backwarp_bwd_plain(img, flow, gout, s))
+            # the workspace's two passes besides the kernel, by PyTorch calls that move the same
+            # bytes: the memset (zero_), and an f32 -> bf16 pass like the rounding kernel (copy_)
+            ws = torch.empty(img.shape, device=dev, dtype=torch.float32)
+            memset_ms, round_ms = timer(lambda: ws.zero_()), timer(lambda: g_img.copy_(ws))
+            del ws
+            rows["backwarp_bwd_bf16"] = dict(ms=case["ms"], plain_ms=case["plain_ms"], library_ms=None,
+                                             shape=case["shape"], bound=case["bound"],
+                                             bound_workspace_ms=case["bound_workspace_ms"], f32_ms=case["f32_ms"],
+                                             workspace_memset_ms=memset_ms, round_pass_proxy_ms=round_ms)
+            log(f"  backwarp_bwd_bf16 workspace [{b},{c},{h},{w}] f32: memset (zero_) {memset_ms:.4f} ms, an f32 -> "
+                f"bf16 pass over it (copy_, as the rounding kernel) {round_ms:.4f} ms  ({card})")
+        cases.append(case)
+        log(f"  backwarp_bwd_bf16 {case['shape']}, {case['flow']}: {case['ms']:.4f} ms alone, float32 form "
+            f"{case['f32_ms']:.4f} ms (bf16/f32 {case['ms'] / case['f32_ms']:.3f}); bound {case['bound'][0]:.4f} ms "
+            f"({case['bound'][1]}, {case['bound'][0] / case['ms']:.1%} of it), the workspace design's "
+            f"{case['bound_workspace_ms']:.4f} ms  ({card})")
+        del flow, gout, g_flow
+    rows["backwarp_bwd_bf16"]["cases"] = [
+        {k: (v[0] if k == "bound" else v) for k, v in case.items()} for case in cases]
+    del img, g_img
+    b, c, h, w = TRAIN_B, 64, TRAIN_H // 2, TRAIN_W // 2
+    f1, f2 = randn((b, c, h, w), 35, dev).to(bf), randn((b, c, h, w), 36, dev).to(bf)
+    g = randn((b, 49, h, w), 37, dev).to(bf)
+    g_f1, g_f2 = torch.empty_like(f1), torch.empty_like(f2)
+    rows["corr49_bwd_bf16"] = dict(
+        ms=timer(lambda: corr._launch_bwd(f1, f2, g, g_f1, g_f2)),
+        plain_ms=timer(lambda: corr.corr49_bwd_plain(f1, f2, g)), library_ms=None,
+        shape=f"[{b},{c},{h},{w}]", f32_ms=f32_rows["corr49_bwd"]["ms"],
+        bound=bound_ms(2 * (4 * c + 49) * b * h * w, 2 * 2 * 49 * c * b * h * w))
+    r = rows["corr49_bwd_bf16"]
+    log(f"  corr49_bwd_bf16 {r['shape']}: {r['ms']:.4f} ms alone, float32 form {r['f32_ms']:.4f} ms (bf16/f32 "
+        f"{r['ms'] / r['f32_ms']:.3f}); bound {r['bound'][0]:.4f} ms ({r['bound'][1]}, "
+        f"{r['bound'][0] / r['ms']:.1%} of it)  ({card})")
+    del f1, f2, g, g_f1, g_f2
+    for name, r in rows.items():
+        log(f"  {name:18s} {r['shape']:26s} {r['ms']:.4f} ms  plain {r['plain_ms']:.4f} ms  library null  "
+            f"bound {r['bound'][0]:.4f} ms ({r['bound'][1]})  ({card})")
+    return rows
 
 
 def time_backward(dev, ops, card):
@@ -1264,12 +1529,18 @@ def main() -> int:
     log("phase 5: training")
     tr = run_training(dev, ops, card)
     tr2 = run_training_v2(dev, ops, card)
+    log("  bf16 training:")
+    tr_bf16 = run_training_bf16(dev, ops, card, 1, tr)
+    run_training_bf16(dev, ops, card, 2, tr2)
+    del tr["plain_grads"], tr2["plain_grads"]
     rows.update(time_backward(dev, ops, card))
+    rows.update(time_bf16_backward(dev, ops, Timer(dev), card, rows))
 
     sources = {"corr49": "corr49.cu", "backwarp": "backwarp.cu", "rgb_warp_norm": "rgb_warp_norm.cu",
                "conv_chain": "conv_chain.cu", "backwarp_bwd": "backwarp_bwd.cu",
                "corr49_bwd": "corr49_bwd.cu", "corr49_bf16": "corr49.cu", "backwarp_bf16": "backwarp.cu",
-               "rgb_warp_norm_bf16": "rgb_warp_norm.cu"}
+               "rgb_warp_norm_bf16": "rgb_warp_norm.cu", "backwarp_bwd_bf16": "backwarp_bwd.cu",
+               "corr49_bwd_bf16": "corr49_bwd.cu"}
     replaces = {
         "corr49": "piv_liteflownet_tpu/ops/pallas_corr.py:66,162",
         "backwarp": "piv_liteflownet_tpu/ops/pallas_feat_warp.py:115",
@@ -1282,15 +1553,20 @@ def main() -> int:
         "corr49_bf16": "piv_liteflownet_tpu/ops/pallas_corr.py:66,162",
         "backwarp_bf16": "piv_liteflownet_tpu/ops/pallas_feat_warp.py:115",
         "rgb_warp_norm_bf16": "piv_liteflownet_tpu/ops/pallas_rgb_warp.py:119",
+        # the bf16 backward: K5 in g's dtype, and the XLA VJP of the bf16 shift-stack
+        "backwarp_bwd_bf16": "piv_liteflownet_tpu/ops/pallas_warp_vjp.py:119",
+        "corr49_bwd_bf16": "piv_liteflownet_tpu/ops/correlation.py:85",
     }
     paths = dict(sl["paths"], **sl_bf16["paths"])
     paths["train step piv v1 256^2 b8"] = tr["launches"]
     paths["train step piv v2 256^2 b8"] = tr2["launches"]
+    paths[PATH_TRAIN_V1_BF16] = tr_bf16["launches"]
     # each kernel's own path: where its launches are counted
     own = {"corr49": PATH_V1, "backwarp": PATH_V1, "rgb_warp_norm": PATH_V1,
            "conv_chain": PATH_V2_CHAIN, "backwarp_bwd": "train step piv v1 256^2 b8",
            "corr49_bwd": "train step piv v1 256^2 b8", "corr49_bf16": PATH_V1_BF16,
-           "backwarp_bf16": PATH_V1_BF16, "rgb_warp_norm_bf16": PATH_V1_BF16}
+           "backwarp_bf16": PATH_V1_BF16, "rgb_warp_norm_bf16": PATH_V1_BF16,
+           "backwarp_bwd_bf16": PATH_TRAIN_V1_BF16, "corr49_bwd_bf16": PATH_TRAIN_V1_BF16}
     kernels = [dict(
         name=name, route="cuda", source=f"piv_liteflownet_tpu_torch/csrc/{sources[name]}",
         replaces=replaces[name], launches=paths[own[name]][name],
@@ -1298,7 +1574,8 @@ def main() -> int:
         launches_by_path={p: counts.get(name, 0) for p, counts in paths.items()},
         max_abs_err=errs[name], ms=r["ms"], plain_ms=r["plain_ms"], bound_ms=r["bound"][0],
         bound_by=r["bound"][1], library_ms=r["library_ms"],
-        **{k: r[k] for k in ("launch_ms", "bound_f32_ms", "cases", "channel_scan") if k in r})
+        **{k: r[k] for k in ("launch_ms", "bound_f32_ms", "bound_workspace_ms", "f32_ms", "workspace_memset_ms",
+                             "round_pass_proxy_ms", "cases", "channel_scan") if k in r})
         for name, r in rows.items()]
     if len(kernels) != len(sources) or any(k["launches"] == 0 for k in kernels):
         raise AssertionError(f"a kernel never launched on its path: {paths}")

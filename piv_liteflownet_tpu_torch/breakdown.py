@@ -7,10 +7,12 @@ Runs PIV-LiteFlowNet-en (``--version`` 1) or PIV-LiteFlowNet2-en (2), seeded
 random weights, on a synthetic particle pair with the inputs on the card,
 traces ``--iters`` calls of ``estimate`` (or, with ``--train``, of the Adam
 train step with the piv loss; for version 2 the six-weight ``MultiScale``)
-after a warm-up (``--bf16``: ``estimate`` of the model cast to bfloat16, the
-kernels' bf16 forms), and prints per call: the device time of each group of CUDA kernels
+after a warm-up (``--bf16``: ``estimate`` of the model cast to bfloat16, or
+with ``--train`` the mixed-precision step ``compute_dtype=torch.bfloat16``;
+the kernels' bf16 forms), and prints per call: the device time of each group of CUDA kernels
 (convs, the port's kernels, the optimizer, elementwise, resize, memory
-copies, other), the device busy time, the span from the first kernel's
+copies, other), the part of the convs' time that cuDNN spends transposing
+NCHW tensors to NHWC and back (bf16), the device busy time, the span from the first kernel's
 start to the last kernel's end, and the device idle share within that span,
 followed by the top kernels by device time. Needs a CUDA card.
 """
@@ -31,7 +33,7 @@ GROUPS = (
     ("backwarp", ("backwarp_kernel",)),
     ("rgb_warp_norm", ("rgb_warp_norm_kernel",)),
     ("corr49_bwd", ("corr49_bwd_kernel",)),
-    ("backwarp_bwd", ("backwarp_bwd_kernel",)),
+    ("backwarp_bwd", ("backwarp_bwd_kernel", "round_to_bf16_kernel")),
     ("conv", ("conv", "gemm", "xmma", "cutlass", "cudnn", "implicit", "winograd", "fft", "sm90_",
               "wgrad", "dgrad")),
     ("optimizer", ("multi_tensor", "adam")),
@@ -39,6 +41,10 @@ GROUPS = (
     ("memcpy/memset", ("memcpy", "memset")),
     ("elementwise/reduce", ("elementwise", "reduce", "vectorized", "cat", "index", "gather", "copy")),
 )
+
+
+#: Kernel names of cuDNN's layout transposes, counted in the conv group and also apart.
+TRANSPOSES = ("nchwtonhwc", "nhwctonchw")
 
 
 def group_of(kernel_name: str) -> str:
@@ -69,14 +75,17 @@ def summarize(kernels: List[Tuple[str, float, float]], calls: int) -> dict:
     """Per-call device ms by group, busy ms, span ms and idle share from ``(name, start_us, end_us)``."""
     by_group: dict = defaultdict(float)
     by_name: dict = defaultdict(lambda: [0.0, 0])
+    transposes = 0.0
     for name, s, e in kernels:
         by_group[group_of(name)] += (e - s) / 1e3 / calls
+        transposes += (e - s) / 1e3 / calls if any(k in name.lower() for k in TRANSPOSES) else 0.0
         by_name[name][0] += (e - s) / 1e3 / calls
         by_name[name][1] += 1
     busy, span = busy_and_span((s, e) for _, s, e in kernels)
     top = sorted(by_name.items(), key=lambda kv: -kv[1][0])[:12]
     return {
         "device_ms_per_call": dict(sorted(by_group.items(), key=lambda kv: -kv[1])),
+        "conv_layout_transposes_ms_per_call": transposes,
         "busy_ms_per_call": busy / 1e3 / calls,
         "span_ms_per_call": span / 1e3 / calls,
         "idle_share": 1.0 - busy / span if span > 0 else None,
@@ -93,19 +102,18 @@ def main(argv=None) -> int:
     parser.add_argument("--version", type=int, choices=[1, 2], default=1)
     parser.add_argument("--conv_impl", choices=["cudnn", "chain"], default="cudnn",
                         help="the NetE conv stacks of estimate: cuDNN, or the conv_chain kernel")
-    parser.add_argument("--bf16", action="store_true", help="estimate of the model in bfloat16")
+    parser.add_argument("--bf16", action="store_true",
+                        help="estimate of the model in bfloat16, or with --train the bf16 train step")
     args = parser.parse_args(argv)
     if not torch.cuda.is_available():
         raise SystemExit("breakdown: needs a CUDA card")
-    if args.bf16 and args.train:
-        raise SystemExit("breakdown: bf16 training is not ported yet (ROADMAP.md)")
 
     from piv_liteflownet_tpu_torch import piv_liteflownet
     from piv_liteflownet_tpu_torch.inference import estimate
     from piv_liteflownet_tpu_torch.utils.synthetic import particle_pair
 
     model = piv_liteflownet(version=args.version, seed=0, conv_impl=args.conv_impl)
-    if args.bf16:
+    if args.bf16 and not args.train:
         model = model.to(torch.bfloat16)
     shift = (2.5, -1.5)
     im1, im2 = particle_pair(args.batch, args.size, args.size, seed=0, shift=shift)
@@ -116,7 +124,8 @@ def main(argv=None) -> int:
         from piv_liteflownet_tpu_torch.training.optim import make_optimizer
 
         opt = make_optimizer(model, model.cfg.lowest_level)
-        step = make_train_step(model.cfg, piv_loss() if args.version == 1 else v2_multiscale(), opt)
+        step = make_train_step(model.cfg, piv_loss() if args.version == 1 else v2_multiscale(), opt,
+                               compute_dtype=torch.bfloat16 if args.bf16 else None)
         state = TrainState(model, opt)
         target = torch.empty((args.batch, args.size, args.size, 2), device="cuda")
         target[...] = torch.tensor(shift, device="cuda")
@@ -134,8 +143,10 @@ def main(argv=None) -> int:
         for _ in range(args.iters):
             call()
         torch.cuda.synchronize()
+    # device events only: kernels, copies and memsets, not the ranges that the profiler's own
+    # annotations (Optimizer.step#Adam.step) span on the device timeline
     kernels = [(e.name, e.time_range.start, e.time_range.end) for e in prof.events()
-               if e.device_type == torch.autograd.DeviceType.CUDA]
+               if e.device_type == torch.autograd.DeviceType.CUDA and not e.is_user_annotation]
     card = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
         check=True, capture_output=True, text=True, timeout=60).stdout.strip().splitlines()[0]

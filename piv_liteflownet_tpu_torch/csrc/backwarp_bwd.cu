@@ -1,5 +1,6 @@
-// Backward of the bilinear backward warp (csrc/backwarp.cu), f32 NCHW:
-// given gout = dL/dout [B, C, Ho, Wo] it gives, in one launch,
+// Backward of the bilinear backward warp (csrc/backwarp.cu), NCHW, in float32
+// or bfloat16 (map, flow, gout and gradients of one type): given
+// gout = dL/dout [B, C, Ho, Wo] it gives, in one launch,
 //
 //   g_img[b,c]            = sum over output pixels of gout * (their 4 tap weights),
 //                           scattered onto the 4 taps each pixel read;
@@ -63,6 +64,23 @@
 // cudaMemsetAsync on the same stream first: the footprints of neighbouring
 // tiles overlap, so every element is a sum of reductions, and an element
 // that no tap reaches stays zero.
+//
+// The bf16 form (pivk_backwarp_bwd_bf16) is the same kernel on bf16 img,
+// flow and gout, widened to f32 as they are loaded (the taps of the next
+// channel still prefetched into registers, now 2-byte gathers), with f32
+// coordinates, weights, products and sums, as the TPU kernel keeps f32 sums
+// and casts once on store (pallas_warp_vjp.py:100-111). g_flow, summed in
+// registers, is rounded once on store. g_img cannot be summed in bf16: a
+// bf16 reduction (atomicAdd on __nv_bfloat162) would round every partial sum,
+// in an order that varies from run to run. So the kernel sums g_img into an
+// f32 workspace of g_img's shape with the f32 form's reductions unchanged,
+// and a second kernel in this source rounds the workspace once to bf16 g_img
+// (8 values a thread). The caller passes the workspace (torch.empty in
+// ops/warp.py, 4 bytes per element of img, freed after the launch). Bound on
+// an H100 at the shape above: the function's bf16 bytes, ~206 MB or ~61 us;
+// the workspace design moves at least ~470 MB (bf16 inputs, the workspace
+// written once and read once in f32, g_img written in bf16), ~140 us, before
+// the memset and the reductions' L2 read-modify-write.
 
 #include <climits>
 #include <cstdint>
@@ -83,11 +101,12 @@ constexpr unsigned FULL = 0xffffffffu;
 
 __device__ __forceinline__ int tap_delta(int k, int row) { return (k & 1) + (k >> 1) * row; }
 
-template <int S>
+// g_img: float32, of img's shape (the bf16 form's workspace); img, flow, gout, g_flow: T.
+template <int S, typename T>
 __global__ void __launch_bounds__(NT, 8)
-backwarp_bwd_kernel(const float* __restrict__ img, const float* __restrict__ flow,
-                    const float* __restrict__ gout, float* __restrict__ g_img,
-                    float* __restrict__ g_flow, unsigned int* __restrict__ n_global,
+backwarp_bwd_kernel(const T* __restrict__ img, const T* __restrict__ flow,
+                    const T* __restrict__ gout, float* __restrict__ g_img,
+                    T* __restrict__ g_flow, unsigned int* __restrict__ n_global,
                     int C, int H, int W, int Ho, int Wo, bool vec4) {
   __shared__ float4 windows[WARPS][CAP];
 
@@ -99,10 +118,10 @@ backwarp_bwd_kernel(const float* __restrict__ img, const float* __restrict__ flo
   const bool live = ox < Wo;
   const int npix = Ho * Wo;
   const int p = oy * Wo + ox;
-  const float* fb = flow + (size_t)b * 2 * npix;
+  const T* fb = flow + (size_t)b * 2 * npix;
   // a lane past the right edge samples far outside the map: every tap out
-  const BilinearTaps t = bilinear_taps(live ? (float)(ox * S) + fb[p] : -2.f,
-                                       live ? (float)(oy * S) + fb[npix + p] : -2.f, H, W);
+  const BilinearTaps t = bilinear_taps(live ? (float)(ox * S) + elem::widen(fb[p]) : -2.f,
+                                       live ? (float)(oy * S) + elem::widen(fb[npix + p]) : -2.f, H, W);
   unsigned in = 0;  // bit k: tap k lies inside the map
   int m[4] = {INT_MAX, INT_MAX, INT_MAX, INT_MAX};  // min x, -max x, min y, -max y
 #pragma unroll
@@ -136,14 +155,14 @@ backwarp_bwd_kernel(const float* __restrict__ img, const float* __restrict__ flo
   float* gib = g_img + (size_t)b * C * plane;
   // gout and the four taps (zero outside the map) of the next channel, loaded while the
   // current one is scattered; the pointers step through the channels
-  const float* gnext = gout + (size_t)b * C * npix + p;
-  const float* inext = img + (size_t)b * C * plane + corner;
+  const T* gnext = gout + (size_t)b * C * npix + p;
+  const T* inext = img + (size_t)b * C * plane + corner;
   float g_next = 0.f, v_next[4];
   auto load = [&](bool go) {
-    g_next = go && live ? __ldg(gnext) : 0.f;
+    g_next = go && live ? elem::load(gnext) : 0.f;
 #pragma unroll
     for (int k = 0; k < 4; ++k)
-      v_next[k] = go && (in & (1u << k)) ? __ldg(inext + tap_delta(k, W)) : 0.f;
+      v_next[k] = go && (in & (1u << k)) ? elem::load(inext + tap_delta(k, W)) : 0.f;
     gnext += npix;
     inext += plane;
   };
@@ -252,22 +271,54 @@ backwarp_bwd_kernel(const float* __restrict__ img, const float* __restrict__ flo
     }
   }
   if (live) {
-    float* gfb = g_flow + (size_t)b * 2 * npix;
-    gfb[p] = gu;
-    gfb[npix + p] = gv;
+    T* gfb = g_flow + (size_t)b * 2 * npix;
+    elem::store(gfb + p, gu);
+    elem::store(gfb + npix + p, gv);
   }
 }
 
-template <int S>
-cudaError_t launch(const float* img, const float* flow, const float* gout, float* g_img,
-                   float* g_flow, unsigned int* n_global, int B, int C, int H, int W, int Ho,
+// dst = src rounded to bf16 (to nearest even), n values: 8 a thread (two 16-byte loads, one
+// 16-byte store) over the first 8 * n8 values, one a thread over the rest.
+constexpr int ROUND_BLOCK = 256;
+__global__ void __launch_bounds__(ROUND_BLOCK)
+round_to_bf16_kernel(const float* __restrict__ src, elem::bf16* __restrict__ dst, long long n, long long n8) {
+  const long long i = (long long)blockIdx.x * ROUND_BLOCK + threadIdx.x;
+  if (i < n8) {
+    const float4 a = __ldg(reinterpret_cast<const float4*>(src) + 2 * i);
+    const float4 b = __ldg(reinterpret_cast<const float4*>(src) + 2 * i + 1);
+    reinterpret_cast<uint4*>(dst)[i] = make_uint4(elem::pack2(a.x, a.y), elem::pack2(a.z, a.w),
+                                                  elem::pack2(b.x, b.y), elem::pack2(b.z, b.w));
+  } else {
+    const long long e = 8 * n8 + (i - n8);
+    if (e < n) elem::store(dst + e, src[e]);
+  }
+}
+
+template <int S, typename T>
+cudaError_t launch(const T* img, const T* flow, const T* gout, float* g_img,
+                   T* g_flow, unsigned int* n_global, int B, int C, int H, int W, int Ho,
                    int Wo, cudaStream_t stream) {
   const bool vec4 = W % 4 == 0 && reinterpret_cast<uintptr_t>(g_img) % 16 == 0;
   const dim3 grid((unsigned)((Wo + TILE_W - 1) / TILE_W), (unsigned)((Ho + WARPS - 1) / WARPS),
                   (unsigned)B);
-  backwarp_bwd_kernel<S><<<grid, NT, 0, stream>>>(img, flow, gout, g_img, g_flow, n_global, C, H,
-                                                   W, Ho, Wo, vec4);
+  backwarp_bwd_kernel<S, T><<<grid, NT, 0, stream>>>(img, flow, gout, g_img, g_flow, n_global, C,
+                                                      H, W, Ho, Wo, vec4);
   return cudaGetLastError();
+}
+
+// Zeroes g_img (float32) and launches the kernel of the stride.
+template <typename T>
+int run(const void* img, const void* flow, const void* gout, float* g_img, void* g_flow,
+        void* n_global, int B, int C, int H, int W, int Ho, int Wo, int stride, cudaStream_t s) {
+  cudaError_t err = cudaMemsetAsync(g_img, 0, (size_t)B * C * H * W * sizeof(float), s);
+  if (err != cudaSuccess) return (int)err;
+  auto* counter = (unsigned int*)n_global;
+  err = stride == 1
+      ? launch<1, T>((const T*)img, (const T*)flow, (const T*)gout, g_img, (T*)g_flow, counter, B,
+                     C, H, W, Ho, Wo, s)
+      : launch<2, T>((const T*)img, (const T*)flow, (const T*)gout, g_img, (T*)g_flow, counter, B,
+                     C, H, W, Ho, Wo, s);
+  return (int)err;
 }
 
 }  // namespace
@@ -280,15 +331,31 @@ extern "C" int pivk_backwarp_bwd_f32(const void* img, const void* flow, const vo
                                      void* stream) {
   if (stride != 1 && stride != 2) return (int)cudaErrorInvalidValue;
   return pivk::on_device(device, [&] {
+    return run<float>(img, flow, gout, (float*)g_img, g_flow, n_global, B, C, H, W, Ho, Wo, stride,
+                      (cudaStream_t)stream);
+  });
+}
+
+// The bf16 form takes the f32 form's arguments and, after n_global, the workspace: float32,
+// B*C*H*W values, 16 bytes aligned; its contents on entry do not matter.
+extern "C" int pivk_backwarp_bwd_bf16(const void* img, const void* flow, const void* gout,
+                                      void* g_img, void* g_flow, void* n_global, void* workspace,
+                                      int B, int C, int H, int W, int Ho, int Wo, int stride,
+                                      int device, void* stream) {
+  if (stride != 1 && stride != 2) return (int)cudaErrorInvalidValue;
+  return pivk::on_device(device, [&] {
     const cudaStream_t s = (cudaStream_t)stream;
-    cudaError_t err = cudaMemsetAsync(g_img, 0, (size_t)B * C * H * W * sizeof(float), s);
-    if (err != cudaSuccess) return (int)err;
-    auto* counter = (unsigned int*)n_global;
-    err = stride == 1
-        ? launch<1>((const float*)img, (const float*)flow, (const float*)gout, (float*)g_img,
-                    (float*)g_flow, counter, B, C, H, W, Ho, Wo, s)
-        : launch<2>((const float*)img, (const float*)flow, (const float*)gout, (float*)g_img,
-                    (float*)g_flow, counter, B, C, H, W, Ho, Wo, s);
-    return (int)err;
+    auto* acc = (float*)workspace;
+    const int rc = run<elem::bf16>(img, flow, gout, acc, g_flow, n_global, B, C, H, W, Ho, Wo,
+                                   stride, s);
+    if (rc != 0) return rc;
+    const long long n = (long long)B * C * H * W;
+    const bool vec = (reinterpret_cast<uintptr_t>(acc) | reinterpret_cast<uintptr_t>(g_img)) % 16 == 0;
+    const long long n8 = vec ? n / 8 : 0;
+    const long long threads = n8 + (n - 8 * n8);
+    if (threads == 0) return 0;
+    round_to_bf16_kernel<<<(unsigned)((threads + ROUND_BLOCK - 1) / ROUND_BLOCK), ROUND_BLOCK, 0, s>>>(
+        acc, (elem::bf16*)g_img, n, n8);
+    return (int)cudaGetLastError();
   });
 }

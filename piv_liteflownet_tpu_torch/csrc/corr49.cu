@@ -126,14 +126,6 @@ __device__ __forceinline__ void stage_vec(T* st, const Chunk (&chunks)[Layout<T>
   }
 }
 
-// One value of the edge path: a 4-byte cp.async in f32; in bf16, whose values are 2 bytes and
-// cp.async's least copy is 4, a plain load and store (visible after the barrier that precedes
-// the stage's use).
-__device__ __forceinline__ void copy1(float* dst, const float* src, bool ok) { cp_async4(dst, src, ok); }
-__device__ __forceinline__ void copy1(elem::bf16* dst, const elem::bf16* src, bool ok) {
-  *dst = ok ? *src : __float2bfloat16_rn(0.f);
-}
-
 // The edge path: the same stage, one value per copy.
 template <typename T>
 __device__ __forceinline__ void stage_scalar(T* st, const T* f1c, const T* f2c, int left,

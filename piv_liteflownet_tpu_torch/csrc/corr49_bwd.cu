@@ -1,5 +1,6 @@
-// Backward of the 49-tap cost volume (csrc/corr49.cu), f32 NCHW: given
-// g = dL/dout [B, 49, H, W] it gives, in one launch,
+// Backward of the 49-tap cost volume (csrc/corr49.cu), NCHW, in float32 or
+// bfloat16 (maps, g and gradients of one type): given g = dL/dout
+// [B, 49, H, W] it gives, in one launch,
 //
 //   g_f1[b,c,y,x] = (1/C) sum_d g[b,d,y,x]       * f2[b,c,y+dy,x+dx]
 //   g_f2[b,c,y,x] = (1/C) sum_d g[b,d,y-dy,x-dx] * f1[b,c,y-dy,x-dx]
@@ -41,6 +42,21 @@
 // same columns, so the rows are 44 floats apart, which puts their 16-byte
 // loads on distinct banks. Odd widths take the edge path (4-byte copies,
 // scalar reads of g).
+//
+// The bf16 form (pivk_corr49_bwd_bf16) is the same function on bf16 maps and
+// g, summed in f32 (weights, products and the shuffle reduction) and rounded
+// once to bf16 on store; JAX takes the XLA VJP of the bf16 shift-stack there.
+// It moves half the f32 form's bytes (~80 MB at the shape above, ~24 us at
+// 3.35 TB/s). The ring holds bf16, 8 values per 16-byte chunk: the staged map
+// starts 8 columns left of the tile (48 staged columns) and g's mirrored
+// windows start 8 columns left or at the tile (40 columns), so every chunk
+// stays aligned and the vector path needs W % 8 == 0. A lane widens what it
+// reads to f32: g directly (8-byte loads of 4 values), the mirrored windows
+// value by value, its 12 staged values with three 8-byte shared loads. Those
+// are served a half-warp (16 lanes: two pixel groups x 8 staged rows) at a
+// time, so the rows are 56 values (28 banks) apart, which puts the 16 loads
+// on distinct bank pairs. The edge path stages with plain 2-byte loads and
+// stores (copy1 in csrc/corr_tiles.cuh).
 
 #include "corr_tiles.cuh"
 #include "device_guard.cuh"
@@ -55,44 +71,59 @@ constexpr int NG = TX / R;            // 8 pixel groups per row
 constexpr int LANES = ND + 1;         // lanes per pixel group and output: staged rows j = 0..7
 constexpr int NT = NG * (TY / 2) * LANES;  // 256 threads: groups of 4 pixels x 2 rows
 constexpr int SH = TY + 2 * MD;       // 14 staged rows
-constexpr int SW = TX + 2 * PAD_X;    // 40 staged columns
-constexpr int SWS = SW + 4;           // row stride of the stages (bank spread)
 constexpr int CC = 8;                 // channels per stage
 constexpr int NS = 3;                 // stages in the ring
-constexpr int MAP = SH * SWS;         // floats of one staged map channel
-constexpr int STAGE = CC * MAP;
-// g's mirrored windows: per displacement d, the rows of the tile shifted by -d in plane
-// 48-d, TY x (TX+4) floats from a 16-byte aligned column
-constexpr int GMW = TX + 4;
-constexpr int GDS = TY * GMW + 4;     // floats per displacement (bank spread)
-constexpr int G_OFF = (NS - 1) * STAGE;  // g's windows share the last stage's memory
-constexpr int G_FLOATS = NDISP * GDS;
-constexpr int SMEM = (G_OFF + (STAGE > G_FLOATS ? STAGE : G_FLOATS)) * (int)sizeof(float);  // 96,656 bytes: two blocks per SM
-constexpr int CHUNKS = CC * SH * (SW / 4);          // 16-byte chunks of one stage
-constexpr int SLOTS = (CHUNKS + NT - 1) / NT;
+
+// The shared-memory layout of one element type T (float or bf16), in values of T. Staged map
+// columns start PAD columns left of the tile, a whole 16-byte chunk of the map.
+template <typename T>
+struct Layout {
+  static constexpr int V = 16 / (int)sizeof(T);        // values per 16-byte chunk: 4 / 8
+  static constexpr int PAD = V > PAD_X ? V : PAD_X;    // 4 / 8
+  static constexpr int SW = TX + 2 * PAD;              // 40 / 48 staged columns
+  static constexpr int SWS = SW + V;                   // row stride of the stages, 44 / 56 (bank spread)
+  static constexpr int MAP = SH * SWS;                 // values of one staged map channel
+  static constexpr int STAGE = CC * MAP;
+  // g's mirrored windows: per displacement d, the rows of the tile shifted by -d in plane
+  // 48-d, TY x GMW values from a chunk-aligned column
+  static constexpr int GMW = TX + V;                   // 36 / 40
+  static constexpr int GDS = TY * GMW + V;             // values per displacement (bank spread)
+  static constexpr int G_OFF = (NS - 1) * STAGE;       // g's windows share the last stage's memory
+  static constexpr int G_VALS = NDISP * GDS;
+  static constexpr int SMEM = (G_OFF + (STAGE > G_VALS ? STAGE : G_VALS)) * (int)sizeof(T);  // 96,656 bytes in f32 (two blocks per SM), 57,232 in bf16
+  static constexpr int CHUNKS = CC * SH * (SW / V);    // 16-byte chunks of one stage
+  static constexpr int SLOTS = (CHUNKS + NT - 1) / NT;
+  static_assert(STAGE <= (1 << 14), "Chunk::meta packs dst in 14 bits");
+  static_assert((SWS * sizeof(T)) % 16 == 0 && (GMW * sizeof(T)) % 16 == 0 && (GDS * sizeof(T)) % 16 == 0 &&
+                    (G_OFF * sizeof(T)) % 16 == 0,
+                "staged rows and windows stay 16 bytes aligned");
+};
 
 // One of a thread's chunks, the same in every channel group (see csrc/corr49.cu).
 struct Chunk {
-  int meta;  // dst | ch << 14, dst its float offset in the stage; -1: no chunk
-  int src;   // float offset from the group's base pointer; -1: outside the map (zero-filled)
+  int meta;  // dst | ch << 14, dst its value offset in the stage; -1: no chunk
+  int src;   // value offset from the group's base pointer; -1: outside the map (zero-filled)
 };
-static_assert(STAGE <= (1 << 14), "Chunk::meta packs dst in 14 bits");
 
+template <typename T>
 __device__ __forceinline__ Chunk chunk_of(int i, int x0, int y0, int H, int W, int plane) {
-  if (i >= CHUNKS) return Chunk{-1, -1};
-  constexpr int PER_MAP = SH * (SW / 4);
+  using L = Layout<T>;
+  if (i >= L::CHUNKS) return Chunk{-1, -1};
+  constexpr int PER_ROW = L::SW / L::V;
+  constexpr int PER_MAP = SH * PER_ROW;
   const int ch = i / PER_MAP;
-  const int r = (i - ch * PER_MAP) / (SW / 4);
-  const int j = i - ch * PER_MAP - r * (SW / 4);
+  const int r = (i - ch * PER_MAP) / PER_ROW;
+  const int j = i - ch * PER_MAP - r * PER_ROW;
   const int gy = y0 - MD + r;
-  const int gx = x0 - PAD_X + 4 * j;
+  const int gx = x0 - L::PAD + L::V * j;
   const bool in = gy >= 0 && gy < H && gx >= 0 && gx < W;
-  return Chunk{(ch * MAP + r * SWS + 4 * j) | ch << 14, in ? ch * plane + gy * W + gx : -1};
+  return Chunk{(ch * L::MAP + r * L::SWS + L::V * j) | ch << 14, in ? ch * plane + gy * W + gx : -1};
 }
 
-__device__ __forceinline__ void stage_vec(float* st, const Chunk (&chunks)[SLOTS], const float* mc, int left) {
+template <typename T>
+__device__ __forceinline__ void stage_vec(T* st, const Chunk (&chunks)[Layout<T>::SLOTS], const T* mc, int left) {
 #pragma unroll
-  for (int m = 0; m < SLOTS; ++m) {
+  for (int m = 0; m < Layout<T>::SLOTS; ++m) {
     const Chunk c = chunks[m];
     if (c.meta < 0) continue;
     const bool ok = c.src >= 0 && (c.meta >> 14) < left;
@@ -100,42 +131,47 @@ __device__ __forceinline__ void stage_vec(float* st, const Chunk (&chunks)[SLOTS
   }
 }
 
-// The edge path: the same stage, one float per copy.
-__device__ __forceinline__ void stage_scalar(float* st, const float* mc, int left,
-                                             int x0, int y0, int H, int W, int plane) {
-  for (int i = threadIdx.x; i < CC * SH * SW; i += NT) {
-    const int ch = i / (SH * SW);
-    const int r = (i - ch * (SH * SW)) / SW;
-    const int s = i - ch * (SH * SW) - r * SW;
+// The edge path: the same stage, one value per copy.
+template <typename T>
+__device__ __forceinline__ void stage_scalar(T* st, const T* mc, int left, int x0, int y0, int H, int W,
+                                             int plane) {
+  using L = Layout<T>;
+  for (int i = threadIdx.x; i < CC * SH * L::SW; i += NT) {
+    const int ch = i / (SH * L::SW);
+    const int r = (i - ch * (SH * L::SW)) / L::SW;
+    const int s = i - ch * (SH * L::SW) - r * L::SW;
     const int gy = y0 - MD + r;
-    const int gx = x0 - PAD_X + s;
+    const int gx = x0 - L::PAD + s;
     const bool ok = ch < left && gy >= 0 && gy < H && gx >= 0 && gx < W;
-    cp_async4(st + ch * MAP + r * SWS + s, ok ? mc + ch * plane + gy * W + gx : mc, ok);
+    copy1(st + ch * L::MAP + r * L::SWS + s, ok ? mc + ch * plane + gy * W + gx : mc, ok);
   }
 }
 
-// Where the mirrored window of displacement column dxi starts: its column offset from x0.
-__device__ __forceinline__ int mirror_x(int dxi) { return -PAD_X + 4 * ((dxi + 1) >> 2); }
+// Where the mirrored window of displacement column dxi starts: its column offset from x0, a
+// whole chunk left of the tile for dx < 0 (-4 in f32, -8 in bf16), else at the tile.
+template <typename T>
+__device__ __forceinline__ int mirror_x(int dxi) { return dxi < MD ? -Layout<T>::V : 0; }
 
-// g's mirrored windows into sg, [d][TY][GMW] (d GDS floats apart): the window of
+// g's mirrored windows into sg, [d][TY][GMW] (d GDS values apart): the window of
 // displacement d from plane 48-d.
-template <bool VEC>
-__device__ __forceinline__ void stage_g(float* sg, const float* gb, int x0, int y0, int H, int W, int plane) {
-  constexpr int UNIT = VEC ? 4 : 1;  // floats per copy
-  constexpr int PER_ROW = GMW / UNIT;
+template <typename T, bool VEC>
+__device__ __forceinline__ void stage_g(T* sg, const T* gb, int x0, int y0, int H, int W, int plane) {
+  using L = Layout<T>;
+  constexpr int UNIT = VEC ? L::V : 1;  // values per copy
+  constexpr int PER_ROW = L::GMW / UNIT;
   for (int i = threadIdx.x; i < NDISP * TY * PER_ROW; i += NT) {
     const int d = i / (TY * PER_ROW);
     const int r = (i - d * (TY * PER_ROW)) / PER_ROW;
     const int c = UNIT * (i - d * (TY * PER_ROW) - r * PER_ROW);
     const int dyi = d / ND, dxi = d - dyi * ND;
     const int gy = y0 + r + dyi - MD;
-    const int gx = x0 + mirror_x(dxi) + c;
+    const int gx = x0 + mirror_x<T>(dxi) + c;
     const bool ok = gy >= 0 && gy < H && gx >= 0 && gx < W;
-    const float* src = ok ? gb + (NDISP - 1 - d) * plane + gy * W + gx : gb;
+    const T* src = ok ? gb + (NDISP - 1 - d) * plane + gy * W + gx : gb;
     if (VEC)
-      cp_async16(sg + d * GDS + r * GMW + c, src, ok);
+      cp_async16(sg + d * L::GDS + r * L::GMW + c, src, ok);
     else
-      cp_async4(sg + d * GDS + r * GMW + c, src, ok);
+      copy1(sg + d * L::GDS + r * L::GMW + c, src, ok);
   }
 }
 
@@ -159,12 +195,14 @@ __device__ __forceinline__ float reduce_scatter(const float (&p)[2 * R], int j) 
   return (b0 ? h[1] : h[0]) + __shfl_xor_sync(0xffffffffu, send, 1);
 }
 
-template <bool VEC>
+template <typename T, bool VEC>
 __global__ void __launch_bounds__(NT, 2)
-corr49_bwd_kernel(const float* __restrict__ f1, const float* __restrict__ f2, const float* __restrict__ g,
-                  float* __restrict__ g_f1, float* __restrict__ g_f2, int* __restrict__ edge_tiles, int C,
+corr49_bwd_kernel(const T* __restrict__ f1, const T* __restrict__ f2, const T* __restrict__ g,
+                  T* __restrict__ g_f1, T* __restrict__ g_f2, int* __restrict__ edge_tiles, int C,
                   int H, int W, float inv_c) {
-  extern __shared__ __align__(16) float smem[];
+  using L = Layout<T>;
+  extern __shared__ __align__(16) unsigned char smem_bytes[];
+  T* smem = reinterpret_cast<T*>(smem_bytes);
 
   const int tid = threadIdx.x;
   const int lane = tid & 31;
@@ -177,29 +215,29 @@ corr49_bwd_kernel(const float* __restrict__ f1, const float* __restrict__ f2, co
   const int y0 = blockIdx.y * TY;
   const int b = blockIdx.z >> 1;
   const int plane = H * W;
-  const float* mb = (o ? f1 : f2) + (size_t)b * C * plane;
+  const T* mb = (o ? f1 : f2) + (size_t)b * C * plane;
 
   if (!VEC && tid == 0 && blockIdx.x == 0 && blockIdx.y == 0 && blockIdx.z == 0)
     *edge_tiles += (int)(gridDim.x * gridDim.y * gridDim.z);
 
   // g's mirrored windows and the first two channel groups, in flight together
-  const float* gb = g + (size_t)b * NDISP * plane;
-  float* const sg = smem + G_OFF;
-  if (o == 1) stage_g<VEC>(sg, gb, x0, y0, H, W, plane);
+  const T* gb = g + (size_t)b * NDISP * plane;
+  T* const sg = smem + L::G_OFF;
+  if (o == 1) stage_g<T, VEC>(sg, gb, x0, y0, H, W, plane);
   cp_async_commit();
 
-  Chunk chunks[SLOTS];
+  Chunk chunks[L::SLOTS];
   if (VEC) {
 #pragma unroll
-    for (int m = 0; m < SLOTS; ++m) chunks[m] = chunk_of(tid + m * NT, x0, y0, H, W, plane);
+    for (int m = 0; m < L::SLOTS; ++m) chunks[m] = chunk_of<T>(tid + m * NT, x0, y0, H, W, plane);
   }
   auto stage = [&](int grp) {
     const int c0 = grp * CC;
-    float* st = smem + (grp % NS) * STAGE;
+    T* st = smem + (grp % NS) * L::STAGE;
     if (VEC)
-      stage_vec(st, chunks, mb + (size_t)c0 * plane, C - c0);
+      stage_vec<T>(st, chunks, mb + (size_t)c0 * plane, C - c0);
     else
-      stage_scalar(st, mb + (size_t)c0 * plane, C - c0, x0, y0, H, W, plane);
+      stage_scalar<T>(st, mb + (size_t)c0 * plane, C - c0, x0, y0, H, W, plane);
   };
 
   const int groups = (C + CC - 1) / CC;
@@ -220,19 +258,16 @@ corr49_bwd_kernel(const float* __restrict__ f1, const float* __restrict__ f2, co
     for (int r = 0; r < 2; ++r) {
       const int dyi = j - r;
       const bool live = dyi >= 0 && dyi < ND && y0 + ty + r < H;
-      const float* gp = gb + (size_t)(live ? dyi * ND : 0) * plane + (size_t)(live ? y0 + ty + r : 0) * W + xg;
+      const T* gp = gb + (size_t)(live ? dyi * ND : 0) * plane + (size_t)(live ? y0 + ty + r : 0) * W + xg;
 #pragma unroll
       for (int dx = 0; dx < ND; ++dx) {
         float v[R] = {0.f, 0.f, 0.f, 0.f};
         if (VEC) {
-          if (live && xg < W) {
-            const float4 t = __ldg(reinterpret_cast<const float4*>(gp + (size_t)dx * plane));
-            v[0] = t.x, v[1] = t.y, v[2] = t.z, v[3] = t.w;
-          }
+          if (live && xg < W) elem::ldg4(gp + (size_t)dx * plane, v);
         } else {
 #pragma unroll
           for (int i = 0; i < R; ++i)
-            if (live && xg + i < W) v[i] = __ldg(gp + (size_t)dx * plane + i);
+            if (live && xg + i < W) v[i] = elem::load(gp + (size_t)dx * plane + i);
         }
 #pragma unroll
         for (int i = 0; i < R; ++i) w[r][dx][i] = v[i] * inv_c;
@@ -249,9 +284,9 @@ corr49_bwd_kernel(const float* __restrict__ f1, const float* __restrict__ f2, co
       const int dyc = dyi < 0 ? 0 : (dyi < ND ? dyi : ND - 1);
 #pragma unroll
       for (int dx = 0; dx < ND; ++dx) {
-        const float* gp = sg + (dyc * ND + dx) * GDS + (ty + r) * GMW + R * k + dx - MD - mirror_x(dx);
+        const T* gp = sg + (dyc * ND + dx) * L::GDS + (ty + r) * L::GMW + R * k + dx - MD - mirror_x<T>(dx);
 #pragma unroll
-        for (int i = 0; i < R; ++i) w[r][dx][i] = live ? gp[i] * inv_c : 0.f;
+        for (int i = 0; i < R; ++i) w[r][dx][i] = live ? elem::widen(gp[i]) * inv_c : 0.f;
       }
     }
   }
@@ -260,20 +295,21 @@ corr49_bwd_kernel(const float* __restrict__ f1, const float* __restrict__ f2, co
   const int y = y0 + ty + (j >> 2);
   const int x = x0 + R * k + (j & 3);
   const bool store = y < H && x < W;
-  float* dst = (o ? g_f2 : g_f1) + (size_t)b * C * plane + (size_t)y * W + x;
-  const int row = (ty + j) * SWS + R * k;
+  T* dst = (o ? g_f2 : g_f1) + (size_t)b * C * plane + (size_t)y * W + x;
+  // the 12 values from x0 + 4k - 4 on: column 4k + PAD - 4 of the staged row
+  const int row = (ty + j) * L::SWS + R * k + (L::PAD - PAD_X);
 
   for (int grp = 0; grp < groups; ++grp) {
     cp_async_wait<1>();  // group grp has landed (only grp+1 may still be in flight)
     __syncthreads();     // ... for every thread, and every thread is done with group grp-1
     if (grp + 2 < groups) stage(grp + 2);
     cp_async_commit();
-    const float* st = smem + (grp % NS) * STAGE + row;
+    const T* st = smem + (grp % NS) * L::STAGE + row;
     const int c0 = grp * CC;
 #pragma unroll
     for (int ch = 0; ch < CC; ++ch) {
       float v[ROWV], p[2 * R];
-      load_row(st + ch * MAP, v);
+      load_row(st + ch * L::MAP, v);
 #pragma unroll
       for (int r = 0; r < 2; ++r)
 #pragma unroll
@@ -284,37 +320,49 @@ corr49_bwd_kernel(const float* __restrict__ f1, const float* __restrict__ f2, co
           p[r * R + i] = a;
         }
       const float val = reduce_scatter(p, j);
-      if (store && c0 + ch < C) dst[(size_t)(c0 + ch) * plane] = val;
+      if (store && c0 + ch < C) elem::store(dst + (size_t)(c0 + ch) * plane, val);
     }
   }
 }
 
-template <bool VEC>
-int launch(const float* f1, const float* f2, const float* g, float* g_f1, float* g_f2, int* edge_tiles, int B,
-           int C, int H, int W, cudaStream_t stream) {
-  cudaError_t err = allow_smem<corr49_bwd_kernel<VEC>>(SMEM);
+template <typename T, bool VEC>
+int launch(const T* f1, const T* f2, const T* g, T* g_f1, T* g_f2, int* edge_tiles, int B, int C, int H, int W,
+           cudaStream_t stream) {
+  constexpr int smem = Layout<T>::SMEM;
+  cudaError_t err = allow_smem<corr49_bwd_kernel<T, VEC>>(smem);
   if (err != cudaSuccess) return (int)err;
   const dim3 grid((W + TX - 1) / TX, (H + TY - 1) / TY, 2 * B);
-  corr49_bwd_kernel<VEC><<<grid, NT, SMEM, stream>>>(f1, f2, g, g_f1, g_f2, edge_tiles, C, H, W,
-                                                      1.0f / (float)C);
+  corr49_bwd_kernel<T, VEC><<<grid, NT, smem, stream>>>(f1, f2, g, g_f1, g_f2, edge_tiles, C, H, W,
+                                                         1.0f / (float)C);
   return (int)cudaGetLastError();
+}
+
+template <typename T>
+int run(const void* f1, const void* f2, const void* g, void* g_f1, void* g_f2, void* edge_tiles, int B, int C,
+        int H, int W, int device, void* stream) {
+  return pivk::on_device(device, [&] {
+    const auto st = (cudaStream_t)stream;
+    auto* a = (const T*)f1;
+    auto* b = (const T*)f2;
+    auto* gg = (const T*)g;
+    auto* o1 = (T*)g_f1;
+    auto* o2 = (T*)g_f2;
+    auto* n = (int*)edge_tiles;
+    return vector_path(W, f1, f2, g, Layout<T>::V) ? launch<T, true>(a, b, gg, o1, o2, n, B, C, H, W, st)
+                                                   : launch<T, false>(a, b, gg, o1, o2, n, B, C, H, W, st);
+  });
 }
 
 }  // namespace
 
-// edge_tiles: one int on the device; a launch that takes the edge path (W not a multiple
-// of 4, or an input not 16 bytes aligned) adds its number of tiles to it.
+// edge_tiles: one int on the device; a launch that takes the edge path (W not a whole number
+// of 16-byte chunks, or an input not 16 bytes aligned) adds its number of tiles to it.
 extern "C" int pivk_corr49_bwd_f32(const void* f1, const void* f2, const void* g, void* g_f1, void* g_f2,
                                    void* edge_tiles, int B, int C, int H, int W, int device, void* stream) {
-  return pivk::on_device(device, [&] {
-    const auto st = (cudaStream_t)stream;
-    auto* a = (const float*)f1;
-    auto* b = (const float*)f2;
-    auto* gg = (const float*)g;
-    auto* o1 = (float*)g_f1;
-    auto* o2 = (float*)g_f2;
-    auto* n = (int*)edge_tiles;
-    return vector_path(W, f1, f2, g) ? launch<true>(a, b, gg, o1, o2, n, B, C, H, W, st)
-                                     : launch<false>(a, b, gg, o1, o2, n, B, C, H, W, st);
-  });
+  return run<float>(f1, f2, g, g_f1, g_f2, edge_tiles, B, C, H, W, device, stream);
+}
+
+extern "C" int pivk_corr49_bwd_bf16(const void* f1, const void* f2, const void* g, void* g_f1, void* g_f2,
+                                    void* edge_tiles, int B, int C, int H, int W, int device, void* stream) {
+  return run<elem::bf16>(f1, f2, g, g_f1, g_f2, edge_tiles, B, C, H, W, device, stream);
 }

@@ -23,9 +23,11 @@
 // device counter so the caller can see which path ran (one plain add by one
 // thread per launch: no atomics).
 //
-// The forward has a bf16 form too (csrc/corr49.cu). A 16-byte chunk then holds 8
-// values, so the vector path needs W a multiple of 8, and the staged columns
-// start 8 to the left of the tile to keep each chunk aligned.
+// Both kernels have a bf16 form too. A 16-byte chunk then holds 8 values, so
+// the vector path needs W a multiple of 8, the staged columns start 8 to the
+// left of the tile to keep each chunk aligned, and the edge path stages with
+// plain 2-byte loads and stores (copy1), since cp.async copies no less than 4
+// bytes.
 
 #pragma once
 
@@ -58,6 +60,14 @@ __device__ __forceinline__ void cp_async16(void* dst, const void* src, bool ok) 
 __device__ __forceinline__ void cp_async4(float* dst, const float* src, bool ok) {
   asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(smem_addr(dst)), "l"(src),
                "r"(ok ? 4 : 0));
+}
+
+// One value of an edge path: a 4-byte cp.async in f32; in bf16, whose values are 2 bytes and
+// cp.async's least copy is 4, a plain load and store (visible after the barrier that precedes
+// the stage's use).
+__device__ __forceinline__ void copy1(float* dst, const float* src, bool ok) { cp_async4(dst, src, ok); }
+__device__ __forceinline__ void copy1(elem::bf16* dst, const elem::bf16* src, bool ok) {
+  *dst = ok ? *src : __float2bfloat16_rn(0.f);
 }
 
 __device__ __forceinline__ void cp_async_commit() { asm volatile("cp.async.commit_group;\n" ::: "memory"); }

@@ -20,6 +20,10 @@ __device__ __forceinline__ float load(const bf16* p) {
   return __uint_as_float((uint32_t)__ldg(reinterpret_cast<const unsigned short*>(p)) << 16);
 }
 
+// One value, already loaded, as f32.
+__device__ __forceinline__ float widen(float v) { return v; }
+__device__ __forceinline__ float widen(bf16 v) { return __bfloat162float(v); }
+
 // One value from f32.
 __device__ __forceinline__ void store(float* p, float v) { *p = v; }
 __device__ __forceinline__ void store(bf16* p, float v) { *p = __float2bfloat16_rn(v); }
@@ -45,6 +49,23 @@ __device__ __forceinline__ void load4(const float* p, float* v) {
 }
 __device__ __forceinline__ void load4(const bf16* p, float* v) {
   const uint2 t = *reinterpret_cast<const uint2*>(p);
+  v[0] = lo(t.x);
+  v[1] = hi(t.x);
+  v[2] = lo(t.y);
+  v[3] = hi(t.y);
+}
+
+// Four adjacent values from device memory as f32, through the read-only cache: one 16-byte
+// load in f32, one 8-byte in bf16 (p aligned to the load).
+__device__ __forceinline__ void ldg4(const float* p, float* v) {
+  const float4 t = __ldg(reinterpret_cast<const float4*>(p));
+  v[0] = t.x;
+  v[1] = t.y;
+  v[2] = t.z;
+  v[3] = t.w;
+}
+__device__ __forceinline__ void ldg4(const bf16* p, float* v) {
+  const uint2 t = __ldg(reinterpret_cast<const uint2*>(p));
   v[0] = lo(t.x);
   v[1] = hi(t.x);
   v[2] = lo(t.y);

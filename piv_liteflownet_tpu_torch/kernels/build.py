@@ -44,9 +44,13 @@ SIGNATURES = {
     "pivk_corr49_bwd_f32": (_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P),
     "pivk_conv_chain_f32": (_P, _P, _I, _P, _I, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P),
 }
-#: The bfloat16 forms take the arguments of their float32 forms.
+#: The bfloat16 forms take the arguments of their float32 forms; the backwarp gradient's also
+#: takes, after its counter, a float32 workspace of the image's shape.
 SIGNATURES.update({name.replace("_f32", "_bf16"): SIGNATURES[name] for name in
-                   ("pivk_corr49_f32", "pivk_backwarp_f32", "pivk_rgb_warp_norm_f32")})
+                   ("pivk_corr49_f32", "pivk_backwarp_f32", "pivk_rgb_warp_norm_f32",
+                    "pivk_corr49_bwd_f32")})
+SIGNATURES["pivk_backwarp_bwd_bf16"] = (SIGNATURES["pivk_backwarp_bwd_f32"][:6] + (_P,)
+                                        + SIGNATURES["pivk_backwarp_bwd_f32"][6:])
 
 
 @dataclass(frozen=True)

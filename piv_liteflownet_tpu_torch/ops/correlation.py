@@ -19,11 +19,11 @@ registers. :func:`tile_plan` is their tile rule. A launch whose rows are not
 16-byte aligned (width not a multiple of 4, or a misaligned tensor) takes
 the kernels' edge path and adds its tiles to :func:`edge_tile_counter`.
 
-The forward has a bfloat16 form (``pivk_corr49_bf16``): the same function
-on bf16 maps, summed in float32 and rounded once to bf16. A 16-byte row chunk
-holds 8 bf16, so its vector path needs a width that is a multiple of 8.
-:func:`corr49_plain` keeps its operands' dtype. bf16 has no backward kernel
-yet: its backward raises.
+Both kernels have a bfloat16 form (``pivk_corr49_bf16``,
+``pivk_corr49_bwd_bf16``): the same function on bf16 maps (and g), summed in
+float32 and rounded once to bf16. A 16-byte row chunk holds 8 bf16, so their
+vector path needs a width that is a multiple of 8. :func:`corr49_plain` and
+:func:`corr49_bwd_plain` keep their operands' dtype.
 """
 
 from __future__ import annotations
@@ -42,8 +42,10 @@ NDISP = (2 * MD + 1) ** 2
 launches = 0
 #: Launches of the forward kernel's bfloat16 form.
 bf16_launches = 0
-#: Launches of the backward kernel, made by the backward of :func:`corr49` on CUDA.
+#: Launches of the backward kernel, made by the backward of :func:`corr49` on CUDA: the float32 form.
 bwd_launches = 0
+#: Launches of the backward kernel's bfloat16 form.
+bwd_bf16_launches = 0
 
 #: Output tile (width, height) of a block of ``csrc/corr49.cu`` and of ``csrc/corr49_bwd.cu``
 #: (whose blocks each take one of the two outputs of a tile).
@@ -80,20 +82,19 @@ def smem_bytes(backward: bool, dtype: torch.dtype = torch.float32) -> int:
 
     Forward: a ring of ``STAGES`` stages, each ``STAGE_CHANNELS`` f2 tiles plus halo
     ((TY+6) x (TX+2*pad), pad 4 in float32 and 8 in bf16, a whole chunk) and f1 tiles
-    (TY x TX), in ``dtype``. Backward (float32 only): a ring of stages, each
-    ``STAGE_CHANNELS`` tiles plus halo of one map in rows of TX+12 floats, the last stage
-    sharing its memory with g's mirrored windows (per displacement, TY rows of TX+4 floats,
-    + 4).
+    (TY x TX), in ``dtype``. Backward: a ring of stages, each ``STAGE_CHANNELS`` tiles plus
+    halo of one map in rows of TX+2*pad+v values (v = 4 in float32, 8 in bf16: a chunk), the
+    last stage sharing its memory with g's mirrored windows (per displacement, TY rows of TX+v
+    values, + v).
     """
     tx, ty = BWD_TILE if backward else FWD_TILE
     sh = ty + 2 * MD
+    v = chunk_values(dtype)
+    pad = max(v, MD + 1)
     if not backward:
-        pad = max(chunk_values(dtype), MD + 1)
         return dtype.itemsize * STAGES * STAGE_CHANNELS * (sh * (tx + 2 * pad) + ty * tx)
-    if dtype != torch.float32:
-        raise ValueError(f"the cost-volume backward kernel has no {dtype} form")
-    stage = STAGE_CHANNELS * sh * (tx + 12)
-    return 4 * ((STAGES - 1) * stage + max(stage, NDISP * (ty * (tx + 4) + 4)))
+    stage = STAGE_CHANNELS * sh * (tx + 2 * pad + v)
+    return dtype.itemsize * ((STAGES - 1) * stage + max(stage, NDISP * (ty * (tx + v) + v)))
 
 
 def tile_plan(b: int, h: int, w: int, backward: bool = False, aligned: bool = True,
@@ -173,19 +174,18 @@ class _Corr49(torch.autograd.Function):
 
     @staticmethod
     def backward(ctx, g):
-        global bwd_launches
+        global bwd_launches, bwd_bf16_launches
         f1, f2 = ctx.saved_tensors
-        if f1.dtype == torch.bfloat16:
-            raise NotImplementedError(
-                "corr49 has no bfloat16 backward kernel yet: bf16 training comes with the "
-                "bf16 backward kernels (ROADMAP.md, Queue 2 item 1)")
         g = g.contiguous()
         g_f1 = torch.empty_like(f1)
         g_f2 = torch.empty_like(f2)
         kernels.on_cuda("corr49_bwd", f1, f2, g, g_f1, g_f2)
         if g_f1.numel():
             _launch_bwd(f1, f2, g, g_f1, g_f2)
-            bwd_launches += 1
+            if f1.dtype == torch.bfloat16:
+                bwd_bf16_launches += 1
+            else:
+                bwd_launches += 1
         return g_f1, g_f2
 
 
@@ -193,7 +193,7 @@ def corr49(f1: torch.Tensor, f2: torch.Tensor) -> torch.Tensor:
     """Cost volume of two ``[B,C,H,W]`` maps, both float32 or both bfloat16, in their dtype; kernel
     on CUDA, plain version on the CPU.
 
-    Differentiable in both maps on both paths in float32; on CUDA a bfloat16 backward raises.
+    Differentiable in both maps on both paths, in their dtype.
     """
     if f1.dim() != 4 or f1.shape != f2.shape:
         raise ValueError(f"corr49: expected two equal [B,C,H,W] maps, got "
@@ -217,6 +217,6 @@ def _launch_bwd(f1: torch.Tensor, f2: torch.Tensor, g: torch.Tensor,
     """The backward kernel call itself (a test can substitute a fake); it overwrites both
     outputs, and an edge-path launch adds its tiles to :func:`edge_tile_counter`."""
     b, c, h, w = f1.shape
-    kernels.launch("pivk_corr49_bwd_f32", "corr49_bwd", f1.device,
+    kernels.launch(kernels.entry("corr49_bwd", f1.dtype), "corr49_bwd", f1.device,
                    f1.data_ptr(), f2.data_ptr(), g.data_ptr(), g_f1.data_ptr(),
                    g_f2.data_ptr(), edge_tile_counter(f1.device).data_ptr(), b, c, h, w)

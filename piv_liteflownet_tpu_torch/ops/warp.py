@@ -22,9 +22,12 @@ version.
 
 Both paths keep the map's dtype, float32 or bfloat16, as the JAX function
 does: sample points, floors and the validity test are float32, the bilinear
-weights are cast to the map's dtype. The kernel's bf16 form
-(``pivk_backwarp_bf16``) computes weights and sums in float32 and rounds once
-on store. bf16 has no backward kernel yet: its backward raises.
+weights are cast to the map's dtype. The kernels' bf16 forms
+(``pivk_backwarp_bf16``, ``pivk_backwarp_bwd_bf16``) compute weights and sums
+in float32 and round each output once on store; the backward one sums the
+image gradient into a float32 workspace that :func:`_launch_bwd` allocates,
+then rounds it to bf16. On the CPU the bf16 backward is autograd through
+:func:`backwarp_plain` in bf16.
 """
 
 from __future__ import annotations
@@ -39,8 +42,10 @@ from piv_liteflownet_tpu_torch import kernels
 launches = 0
 #: Launches of the kernel's bfloat16 form.
 bf16_launches = 0
-#: Launches of the backward kernel, made by the backward of :func:`backwarp` on CUDA.
+#: Launches of the backward kernel, made by the backward of :func:`backwarp` on CUDA: the float32 form.
 bwd_launches = 0
+#: Launches of the backward kernel's bfloat16 form.
+bwd_bf16_launches = 0
 
 #: The backward kernel's tile of output pixels, (width, height): one warp's, a lane each.
 TILE_W, TILE_H = 32, 1
@@ -88,16 +93,20 @@ def _taps(img: torch.Tensor, flow: torch.Tensor, stride: int):
 
 
 def backwarp_plain(img: torch.Tensor, flow: torch.Tensor, stride: int = 1) -> torch.Tensor:
-    """Plain PyTorch backwarp: a 4-tap bilinear gather with zeros outside the map, in ``img``'s dtype."""
+    """Plain PyTorch backwarp: a 4-tap bilinear gather with zeros outside the map, in ``img``'s dtype.
+
+    The taps' products (of values and weights in the map's dtype) are summed in float32 and
+    the sum rounded once, as JAX's ``einsum`` over the taps does in bf16.
+    """
     b, c, h, w = img.shape
     ho, wo = flow.shape[2], flow.shape[3]
     flat = img.reshape(b, c, h * w)
     out = None
     for _, _, wgt_y, wgt_x, ok, idx in _taps(img, flow, stride):
         vals = flat.gather(2, idx.expand(b, c, ho * wo)).reshape(b, c, ho, wo)
-        tap = vals * torch.where(ok, wgt_x * wgt_y, 0.0)[:, None]
+        tap = vals.float() * torch.where(ok, wgt_x * wgt_y, 0.0).float()[:, None]
         out = tap if out is None else out + tap
-    return out
+    return out.to(img.dtype)
 
 
 def backwarp_bwd_plain(img: torch.Tensor, flow: torch.Tensor, gout: torch.Tensor,
@@ -199,19 +208,18 @@ class _Backwarp(torch.autograd.Function):
 
     @staticmethod
     def backward(ctx, gout):
-        global bwd_launches
+        global bwd_launches, bwd_bf16_launches
         img, flow = ctx.saved_tensors
-        if img.dtype == torch.bfloat16:
-            raise NotImplementedError(
-                "backwarp has no bfloat16 backward kernel yet: bf16 training comes with the "
-                "bf16 backward kernels (ROADMAP.md, Queue 2 item 1)")
         gout = gout.contiguous()
         g_img = torch.empty_like(img)
         g_flow = torch.empty_like(flow)
         kernels.on_cuda("backwarp_bwd", img, flow, gout, g_img, g_flow)
         if gout.numel():  # empty only when img is empty too
             _launch_bwd(img, flow, gout, ctx.stride, g_img, g_flow)
-            bwd_launches += 1
+            if img.dtype == torch.bfloat16:
+                bwd_bf16_launches += 1
+            else:
+                bwd_launches += 1
         return g_img, g_flow, None
 
 
@@ -219,7 +227,7 @@ def backwarp(img: torch.Tensor, flow: torch.Tensor, stride: int = 1) -> torch.Te
     """Backwarp ``img`` by ``flow`` on the stride-``stride`` grid; kernel on CUDA, plain version on the CPU.
 
     Both float32 or both bfloat16; the result has their dtype. Differentiable in ``img`` and
-    ``flow`` on both paths in float32; on CUDA a bfloat16 backward raises.
+    ``flow`` on both paths, in their dtype.
     """
     if img.dim() != 4 or flow.dim() != 4:
         raise ValueError("backwarp: img and flow must be [B,C,H,W] and [B,2,h,w]")
@@ -244,9 +252,13 @@ def _launch(img: torch.Tensor, flow: torch.Tensor, stride: int, out: torch.Tenso
 def _launch_bwd(img: torch.Tensor, flow: torch.Tensor, gout: torch.Tensor, stride: int,
                 g_img: torch.Tensor, g_flow: torch.Tensor) -> None:
     """The backward kernel call itself (a test can substitute a fake); it overwrites both
-    outputs and adds its out-of-window tiles to :func:`out_of_window_counter`."""
+    outputs and adds its out-of-window tiles to :func:`out_of_window_counter`. The bf16 form
+    also takes a float32 workspace of ``img``'s shape, allocated here for the launch."""
     b, c, h, w = img.shape
-    kernels.launch("pivk_backwarp_bwd_f32", "backwarp_bwd", img.device,
+    # held until the launch is queued; the caching allocator orders its reuse after the kernel
+    workspace = ([torch.empty(img.shape, device=img.device, dtype=torch.float32)]
+                 if img.dtype == torch.bfloat16 else [])
+    kernels.launch(kernels.entry("backwarp_bwd", img.dtype), "backwarp_bwd", img.device,
                    img.data_ptr(), flow.data_ptr(), gout.data_ptr(), g_img.data_ptr(),
                    g_flow.data_ptr(), out_of_window_counter(img.device).data_ptr(),
-                   b, c, h, w, gout.shape[2], gout.shape[3], stride)
+                   *(t.data_ptr() for t in workspace), b, c, h, w, gout.shape[2], gout.shape[3], stride)

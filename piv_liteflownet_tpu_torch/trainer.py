@@ -12,12 +12,19 @@ The command line with its dataset flags waits for the data slice of the
 port (ROADMAP.md, Queue 1 item 6); until then a caller builds the model,
 optimizer, steps and loaders itself, as ``chip_smoke.py`` does::
 
+    args = TrainArgs(total_epochs=2)
     model = piv_liteflownet(seed=1)
     optimizer = make_optimizer(model, model.cfg.lowest_level)
     loss = piv_loss()
     state = TrainState(model, optimizer)
-    Train(TrainArgs(total_epochs=2), Experiment(), {"train": batches}, state,
-          make_train_step(model.cfg, loss, optimizer), make_eval_step(model.cfg, loss))()
+    step = make_train_step(model.cfg, loss, optimizer,
+                           compute_dtype=torch.bfloat16 if args.bf16 else None)
+    Train(args, Experiment(), {"train": batches}, state, step, make_eval_step(model.cfg, loss))()
+
+``args.bf16`` (the top-level trainer's ``--bf16``) asks for mixed-precision
+steps. The step decides the precision, so ``Train`` refuses a step whose
+``compute_dtype`` is not the one ``args.bf16`` names. Checkpoints hold the
+float32 master params either way.
 """
 
 from __future__ import annotations
@@ -52,6 +59,7 @@ class TrainArgs:
         default_factory=lambda: {"milestones": [-1], "gamma": 0.1})
     loss_norm: str = "L2"
     best_err: float = 1e8
+    bf16: bool = False  # the train step's compute_dtype is bf16 (Train checks it); float32 masters
 
 
 def set_epoch_lrs(optimizer: torch.optim.Optimizer, args: TrainArgs, epoch: int) -> Optional[float]:
@@ -92,6 +100,11 @@ class Train:
 
     def __init__(self, args: TrainArgs, logger, loaders: Dict[str, Any], state: TrainState,
                  train_step: Callable, eval_step: Callable):
+        want = torch.bfloat16 if args.bf16 else torch.float32
+        got = getattr(train_step, "compute_dtype", None)
+        if got != want:
+            raise ValueError(f"args.bf16={args.bf16} asks for {want} steps, the train step computes in "
+                             f"{got}: build it with make_train_step(..., compute_dtype={want})")
         self.args = args
         self.experiment = logger
         self.loaders = loaders
