@@ -53,6 +53,12 @@ the script exits non-zero without the final line.
    ``tile_windows``, both paths required), ``corr49_bwd`` at the training
    step's level shapes and its edge shapes, widths a multiple of 4 but not of
    8 among them (its edge count held to ``tile_plan``, both paths required).
+   Then the bf16 form of ``conv_chain``: one conv of k = 1, 3, 5 and 7 on the
+   tensor-core and the FFMA path, held as above (one bf16 ulp of the rounded
+   float32 plain version, plus its 1e-5 * max|plain|), and every stack
+   above, whose error against the float32 kernel on the same bf16 values
+   must stay within twice the plain bf16 chain's (which rounds once per
+   layer, as the kernel and the TPU kernel do).
 3. The slices end to end on synthetic particle-image pairs: ``estimate`` of
    piv v1, piv v2 and hui v2, with cuDNN convs and with the conv chain, at
    1024^2 b1, 256^2 b4 and 250x300 b1 (through the /32 resize). Each path is
@@ -64,14 +70,16 @@ the script exits non-zero without the final line.
    forward, a ``.flo`` round trip; and one ``estimate`` under torch's default
    flags (cuDNN TF32 on), held to the CPU plain path and to the call with
    TF32 off, beside the size of the TF32 error of an unpinned forward.
-   Then bf16 inference, this slice's main path: ``estimate`` of piv v1,
-   piv v2 and hui v2 cast to bf16 at 1024^2 b1, 256^2 b4 and 250x300, with
-   the counts set to 0 just before and read just after (only the ``_bf16``
-   forms may launch: 6/11/6 for v1), the flow held to the float32 flow of
-   the same weights, to the bf16 plain ops on the card and to the bf16 CPU
-   path within 3 % of the float32 flow's max |flow|; the conv chain in bf16
-   must raise; and ``python -m piv_liteflownet_tpu_torch.run -m piv -v 1
-   --bf16`` on two synthetic pairs must write float32 ``.flo`` files.
+   Then bf16 inference: ``estimate`` of piv v1, piv v2 and hui v2 cast to
+   bf16, with cuDNN convs and with the conv chain (this slice's main path:
+   piv v1 with the chain at 1024^2 b1), at 1024^2 b1, 256^2 b4 and 250x300,
+   with the counts set to 0 just before and read just after (only the
+   ``_bf16`` forms may launch: 6/11/6 for v1, and 18 ``conv_chain_bf16``
+   with the chain), the flow held to the float32 flow of the same weights,
+   to the bf16 plain ops on the card, with the chain to the bf16 cuDNN path,
+   and to the bf16 CPU path within 3 % of the float32 flow's max |flow|; and
+   ``python -m piv_liteflownet_tpu_torch.run -m piv -v 1 --bf16`` on two
+   synthetic pairs must write float32 ``.flo`` files.
 4. Times: estimate ms/pair (median and p90 of 100 calls, 30 with the conv
    chain; host clock around synchronised calls) and pairs/s, and with CUDA
    events each kernel at its level-1 shape beside its plain version, the one
@@ -81,12 +89,15 @@ the script exits non-zero without the final line.
    batch-8 training step, ``backwarp`` also with a random flow beside
    ``F.grid_sample``); ``conv_chain`` at five stacks beside the cuDNN
    chain, with its bound at the 3xTF32 rate (three TF32 products per
-   multiply-add, 495/3 TFLOP/s) and at the f32 CUDA-core rate. bf16
-   ``estimate`` right after float32 for the same model and size, and the
-   peak memory of each; ``rgb_warp_norm`` and ``backwarp`` (as ``corr49``)
-   also alone into a preallocated output (``launch_ms``); the bf16 forms
-   through the op and alone, beside their plain version in bf16 and their
-   bound from the bf16 bytes.
+   multiply-add, 495/3 TFLOP/s) and at the f32 CUDA-core rate, and its bf16
+   form there through the op and alone, beside the f32 form, the bf16 cuDNN
+   chain and its bound at the bf16 rate (989 TFLOP/s), with ``ptxas``'s
+   registers and spills. bf16 ``estimate``, with cuDNN convs and with the
+   chain, right after float32 for the same model and size (1024^2 b1 and
+   256^2 b4), and the peak memory of each; ``rgb_warp_norm`` and
+   ``backwarp`` (as ``corr49``) also alone into a preallocated output
+   (``launch_ms``); the bf16 forms through the op and alone, beside their
+   plain version in bf16 and their bound from the bf16 bytes.
 5. Training at 256^2 batch 8 on synthetic particle pairs: one train step
    through the kernels (the training path: the launch counts are set to 0
    just before it and read just after) and one through the plain ops from
@@ -120,10 +131,10 @@ the script exits non-zero without the final line.
 The line before the last is ``{"kernels": [...]}`` (``launches``: per call of
 each kernel's own path, the piv v1 estimate for the forward kernels, the
 piv v2 chain estimate for ``conv_chain``, the piv v1 train step for the
-backward ones, the piv v1 bf16 estimate for the forward ``_bf16`` forms, the
-piv v1 bf16 train step for the backward ones; ``launches_per_train_step`` of
-the float32 piv v1 step and ``launches_by_path`` for all eleven C entry
-points); the last line is
+backward ones, the piv v1 bf16 estimate for the forward ``_bf16`` forms,
+the piv v1 bf16 chain estimate for ``conv_chain_bf16``, the piv v1 bf16
+train step for the backward ones; ``launches_per_train_step`` of the float32 piv v1 step and
+``launches_by_path`` for all twelve C entry points); the last line is
 ``{"ok": true, "device": {...}}``. Without a CUDA device it exits 2 and
 prints no result.
 """
@@ -145,6 +156,7 @@ import torch.nn.functional as F
 HBM_BYTES_PER_S = 3.35e12   # H100 SXM device memory rate
 F32_FLOPS_PER_S = 67e12     # H100 SXM float32 rate outside the tensor cores
 TF32_FLOPS_PER_S = 495e12   # H100 SXM dense TF32 tensor-core rate
+BF16_FLOPS_PER_S = 989e12   # H100 SXM dense bf16 tensor-core rate
 WARP_ATOL = 1e-5
 CORR_RTOL = 1e-5
 MODEL_ATOL, MODEL_RTOL = 2e-4, 1e-3
@@ -398,7 +410,7 @@ def check_bf16_kernels(dev, ops):
     """Each kernel's bf16 form against the float32 plain version on the bf16 inputs upcast to
     float32, then rounded to bf16: within one bf16 ulp of that reference plus the float32
     kernel's own tolerance, elementwise."""
-    corr, warp, rgb, _ = ops
+    corr, warp, rgb, chain = ops
     bf = torch.bfloat16
     errs = dict.fromkeys(BF16_KERNELS + BF16_BWD_KERNELS, 0.0)
     failures = []
@@ -478,10 +490,52 @@ def check_bf16_kernels(dev, ops):
         hold("rgb_warp_norm_bf16", f"[{b},3,{h},{w}] |flow|<={mag:g}", got,
              rgb.rgb_warp_norm_plain(img1.float(), img2.float(), flow.float()), WARP_ATOL)
         del img1, img2, flow, got
+    seed = check_bf16_chain(dev, chain, hold, errs, failures, seed)
     seed = check_bf16_backward(dev, ops, hold, failures, seed)
     if failures:
         raise AssertionError(f"bf16 kernels disagree with their references: {failures}")
     return errs
+
+
+def check_bf16_chain(dev, chain, hold, errs, failures, seed):
+    """``conv_chain``'s bf16 form. One conv of k = 1, 3, 5 and 7 on the tensor-core path (40 -> 48
+    channels) and on the FFMA path (20 -> 6) at [2,c,123,77], held as ``hold`` holds every bf16
+    kernel. Every stack of ``chain_cases`` (the piv v1 level-1 M, S and R stacks of a 1024^2 pair,
+    the 6-conv v2 stacks, odd sizes): its error against the float32 kernel on the same bf16 values
+    within twice the plain bf16 chain's (which rounds as the kernel does, once per layer, and sums
+    in another order)."""
+    bf = torch.bfloat16
+
+    def bf16_stack(*args):
+        return ([t.to(bf) for t in ts] for ts in chain_stack(*args))
+
+    with torch.no_grad():
+        for k in (1, 3, 5, 7):
+            for cin, cout in ((40, 48), (20, 6)):
+                seed += 1
+                parts, weights, biases = bf16_stack([cin], [(cin, cout)], k, 2, 123, 77, seed, dev)
+                got = chain.conv_chain(parts, weights, biases, False)
+                torch.cuda.synchronize()
+                want = chain.conv_chain_plain(*([t.float() for t in ts] for ts in (parts, weights, biases)), False)
+                hold("conv_chain_bf16", f"[2,{cin},123,77] one {k}x{k} conv to {cout} "
+                     f"({'tensor cores' if cout > 8 else 'FFMA'})", got, want, CHAIN_RTOL * float(want.abs().max()))
+        for name, parts_c, stack, last_k, last_linear, b, h, w in chain_cases():
+            seed += 1
+            parts, weights, biases = bf16_stack(parts_c, stack, last_k, b, h, w, seed, dev)
+            got = chain.conv_chain(parts, weights, biases, last_linear)
+            torch.cuda.synchronize()
+            ref = chain.conv_chain(*([t.float() for t in ts] for ts in (parts, weights, biases)), last_linear)
+            plain = chain.conv_chain_plain(parts, weights, biases, last_linear)
+            err, plain_err = (float((t.float() - ref).abs().max()) for t in (got, plain))
+            errs["conv_chain_bf16"] = max(errs["conv_chain_bf16"], err)
+            ok = err <= 2 * plain_err and got.dtype == bf
+            what = f"{name} [{b},{sum(parts_c)},{h},{w}] {len(stack)} convs"
+            log(f"  {'conv_chain_bf16':18s} {what:56s} vs the f32 kernel {err:.3e}, the plain bf16 chain "
+                f"{plain_err:.3e} (max|ref| {float(ref.abs().max()):.3e})  {'ok' if ok else 'FAIL'}")
+            if not ok:
+                failures.append(f"conv_chain_bf16 {what}")
+            del parts, weights, biases, got, ref, plain
+    return seed
 
 
 def check_bf16_backward(dev, ops, hold, failures, seed):
@@ -597,7 +651,7 @@ SLICE_CASES = [
     ("hui", 2, "chain", 1, MAIN_H, MAIN_W, 15, (4, 7, 4, 12), False),
 ]
 FWD_KERNELS = ("corr49", "backwarp", "rgb_warp_norm", "conv_chain")
-BF16_KERNELS = ("corr49_bf16", "backwarp_bf16", "rgb_warp_norm_bf16")
+BF16_KERNELS = ("corr49_bf16", "backwarp_bf16", "rgb_warp_norm_bf16", "conv_chain_bf16")
 BF16_BWD_KERNELS = ("backwarp_bwd_bf16", "corr49_bwd_bf16")
 PATH_V1 = "estimate piv v1 1024^2 b1"
 PATH_V2_CHAIN = "estimate piv v2 conv_impl=chain 1024^2 b1"
@@ -691,38 +745,49 @@ def check_tf32_repair(model, t1, t2, cpu_ref, f32_flow):
         f"{float((tf32 - f32).abs().max()):.3e} (max|flow| {float(f32.abs().max()):.3e})")
 
 
-# (family, version, b, h, w, seed, launches of the bf16 forms of corr49/backwarp/rgb_warp_norm,
-#  held to the CPU model); every float32 form must launch 0 times
+# (family, version, conv_impl, b, h, w, seed, launches of the bf16 forms of corr49/backwarp/
+#  rgb_warp_norm/conv_chain, held to the CPU model); every float32 form must launch 0 times
 BF16_CASES = [
-    ("piv", 1, 1, MAIN_H, MAIN_W, 31, (6, 11, 6), False),  # this slice's main path
-    ("piv", 2, 1, MAIN_H, MAIN_W, 32, (5, 9, 5), False),
-    ("hui", 2, 1, MAIN_H, MAIN_W, 33, (4, 7, 4), False),
-    ("piv", 1, 4, 256, 256, 34, (6, 11, 6), False),
-    ("piv", 1, 1, 250, 300, 35, (6, 11, 6), True),
-    ("piv", 2, 1, 250, 300, 36, (5, 9, 5), True),
+    ("piv", 1, "cudnn", 1, MAIN_H, MAIN_W, 31, (6, 11, 6, 0), False),  # the main path of bf16 inference
+    ("piv", 2, "cudnn", 1, MAIN_H, MAIN_W, 32, (5, 9, 5, 0), False),
+    ("hui", 2, "cudnn", 1, MAIN_H, MAIN_W, 33, (4, 7, 4, 0), False),
+    ("piv", 1, "cudnn", 4, 256, 256, 34, (6, 11, 6, 0), False),
+    ("piv", 1, "cudnn", 1, 250, 300, 35, (6, 11, 6, 0), True),
+    ("piv", 2, "cudnn", 1, 250, 300, 36, (5, 9, 5, 0), True),
+    ("piv", 1, "chain", 1, MAIN_H, MAIN_W, 40, (6, 11, 6, 18), False),  # this slice's main path
+    ("piv", 1, "chain", 4, 256, 256, 41, (6, 11, 6, 12), False),
+    ("piv", 1, "chain", 1, 250, 300, 42, (6, 11, 6, 12), True),
+    ("piv", 2, "chain", 1, MAIN_H, MAIN_W, 43, (5, 9, 5, 15), False),
+    ("piv", 2, "chain", 4, 256, 256, 44, (5, 9, 5, 9), False),
+    ("piv", 2, "chain", 1, 250, 300, 45, (5, 9, 5, 9), True),
+    ("hui", 2, "chain", 1, MAIN_H, MAIN_W, 46, (4, 7, 4, 12), False),
+    ("hui", 2, "chain", 4, 256, 256, 47, (4, 7, 4, 6), False),
+    ("hui", 2, "chain", 1, 250, 300, 48, (4, 7, 4, 6), True),
 ]
 BF16_FLOW_TOL = 0.03  # of the float32 flow's max |flow|, as tests/test_torch_bf16.py
 PATH_V1_BF16 = "estimate piv v1 bf16 1024^2 b1"
+PATH_V1_BF16_CHAIN = "estimate piv v1 bf16 conv_impl=chain 1024^2 b1"
 
 
 def run_bf16_slice(dev, ops, f32_models):
-    """bf16 inference end to end: ``estimate`` of each model cast to bfloat16, with the launch
-    counts set to 0 just before it and read just after (only the bf16 forms may launch); its
-    flow held to the float32 flow of the same weights on the same pair, to the bf16 plain ops on
-    the card and, at 250x300, to the bf16 CPU path; the conv chain in bf16 raises; and the
-    ``run`` CLI with ``--bf16`` writes float32 ``.flo`` files."""
+    """bf16 inference end to end: ``estimate`` of each model cast to bfloat16, with cuDNN convs and
+    with the conv chain, with the launch counts set to 0 just before it and read just after (only
+    the bf16 forms may launch); its flow held to the float32 flow of the same weights and
+    ``conv_impl`` on the same pair, to the bf16 plain ops on the card, with the chain also to the
+    bf16 cuDNN path, and, at 250x300, to the bf16 CPU path; and the ``run`` CLI with ``--bf16``
+    writes float32 ``.flo`` files."""
     from piv_liteflownet_tpu_torch.inference import estimate
     from piv_liteflownet_tpu_torch.models.liteflownet import PLAIN_OPS
     from piv_liteflownet_tpu_torch.utils.synthetic import particle_pair
 
     bf = torch.bfloat16
     models, paths = {}, {}
-    for family, version, b, h, w, seed, expected, on_cpu in BF16_CASES:
-        key = (family, version)
+    for family, version, conv_impl, b, h, w, seed, expected, on_cpu in BF16_CASES:
+        key = (family, version, conv_impl)
         if key not in models:
-            models[key] = build_model(family, version, "cudnn").to(bf)
+            models[key] = build_model(*key).to(bf)
         model = models[key]
-        what = f"{family} v{version} bf16 b{b} {h}x{w}"
+        what = f"{family} v{version} bf16 {conv_impl} b{b} {h}x{w}"
         im1, im2 = particle_pair(b, h, w, seed)
         t1, t2 = torch.from_numpy(im1).to(dev), torch.from_numpy(im2).to(dev)
         torch.cuda.synchronize()
@@ -730,8 +795,10 @@ def run_bf16_slice(dev, ops, f32_models):
         flow = estimate(model, t1, t2, tensor=True)
         torch.cuda.synchronize()
         counts = read_counts(ops)
-        if (key, b, h) == (("piv", 1), 1, MAIN_H):
+        if (key, b, h) == (("piv", 1, "cudnn"), 1, MAIN_H):
             paths[PATH_V1_BF16] = counts
+        if (key, b, h) == (("piv", 1, "chain"), 1, MAIN_H):
+            paths[PATH_V1_BF16_CHAIN] = counts
         got = tuple(counts[k] for k in BF16_KERNELS)
         f32_launched = {k: v for k, v in counts.items() if not k.endswith("_bf16") and v}
         if got != expected or f32_launched:
@@ -739,28 +806,24 @@ def run_bf16_slice(dev, ops, f32_models):
         if (flow.dtype != bf or tuple(flow.shape) != (b, h, w, 2)
                 or not bool(torch.isfinite(flow).all())):
             raise AssertionError(f"{what}: bad flow, {flow.dtype} {tuple(flow.shape)}")
-        ref = estimate(f32_models[family, version, "cudnn"], t1, t2, tensor=True)
+        ref = estimate(f32_models[key], t1, t2, tensor=True)
         tol = BF16_FLOW_TOL * float(ref.abs().max())
         errs = {"vs float32": float((flow.float() - ref).abs().max())}
         errs["vs bf16 plain ops"] = float((flow - estimate(model, t1, t2, tensor=True, ops=PLAIN_OPS))
                                           .float().abs().max())
+        if conv_impl == "chain":
+            cudnn = models[family, version, "cudnn"]  # an earlier case of BF16_CASES
+            errs["vs bf16 cuDNN"] = float((flow - estimate(cudnn, t1, t2, tensor=True)).float().abs().max())
         if on_cpu:
-            cpu = estimate(build_model(family, version, "cudnn", device="cpu").to(bf), im1, im2, tensor=True)
+            cpu = estimate(build_model(*key, device="cpu").to(bf), im1, im2, tensor=True)
             errs["vs bf16 CPU plain path"] = float((flow.float().cpu() - cpu.float()).abs().max())
-        log(f"  estimate {what}: launches corr49/backwarp/rgb_warp_norm_bf16 = {got}, float32 forms 0; "
-            f"max|flow| f32 {float(ref.abs().max()):.4e}, "
+        log(f"  estimate {what}: launches corr49/backwarp/rgb_warp_norm/conv_chain_bf16 = {got}, float32 "
+            f"forms 0; max|flow| f32 {float(ref.abs().max()):.4e}, "
             + ", ".join(f"{k} {v:.3e}" for k, v in errs.items()) + f" (tol {tol:.3e})")
         if max(errs.values()) > tol:
             raise AssertionError(f"{what}: {errs} beyond {tol:.3e}")
         del flow, ref, t1, t2
-    im1, im2 = particle_pair(1, 256, 256, 37)
-    try:
-        estimate(build_model("piv", 1, "chain").to(bf), im1, im2)
-    except NotImplementedError as e:
-        log(f"  conv_impl='chain' in bf16 raises NotImplementedError: {e}")
-    else:
-        raise AssertionError("a bf16 estimate with conv_impl='chain' did not raise")
-    run_cli_bf16(models["piv", 1])
+    run_cli_bf16(models["piv", 1, "cudnn"])
     return {"paths": paths, "models": models}
 
 
@@ -872,37 +935,71 @@ def peak_memory(dev, fn) -> float:
     return (torch.cuda.max_memory_allocated(dev) - base) / 2**30
 
 
-def time_all(dev, ops, models, bf16_models, card):
+def cudnn_chain(parts, weights, biases, last_linear):
+    """A conv stack as the model's cuDNN path runs it: the parts concatenated, then each conv and
+    LeakyReLU in the operands' dtype."""
+    x = torch.cat(parts, 1)
+    for i, (wt, bs) in enumerate(zip(weights, biases)):
+        x = F.conv2d(x, wt, bs, 1, wt.shape[2] // 2)
+        if i < len(weights) - 1 or not last_linear:
+            x = F.leaky_relu(x, 0.1)
+    return x
+
+
+def ptxas_lines(build_log: str, source: str) -> list:
+    """The register, stack and spill lines ``ptxas -v`` printed for ``source``'s kernels."""
+    lines, keep = [], False
+    for line in build_log.splitlines():
+        if line.startswith("=="):
+            keep = line == f"== {source}"
+        elif keep and any(k in line for k in ("entry function", "registers", "spill")):
+            lines.append(line.strip())
+    return lines
+
+
+def time_all(dev, ops, models, bf16_models, card, build_log):
     from piv_liteflownet_tpu_torch.inference import estimate
     from piv_liteflownet_tpu_torch.utils.synthetic import particle_pair
 
     corr, warp, rgb, chain = ops
     bf = torch.bfloat16
     per_pair = {}
-    # each bf16 cell right after the float32 cell of the same model and size
-    for (family, version, conv_impl), b, h, w in (
-            (("piv", 1, "cudnn"), 1, MAIN_H, MAIN_W), (("piv", 1, "bf16"), 1, MAIN_H, MAIN_W),
-            (("piv", 1, "cudnn"), 4, 256, 256), (("piv", 1, "bf16"), 4, 256, 256),
-            (("piv", 2, "cudnn"), 1, MAIN_H, MAIN_W), (("piv", 2, "bf16"), 1, MAIN_H, MAIN_W),
-            (("piv", 2, "cudnn"), 4, 256, 256),
-            (("piv", 1, "chain"), 1, MAIN_H, MAIN_W), (("piv", 2, "chain"), 1, MAIN_H, MAIN_W)):
-        model = bf16_models[family, version] if conv_impl == "bf16" else models[family, version, conv_impl]
+    # each bf16 cell right after the float32 cell of the same model and size; "bf16" is the bf16
+    # model with cuDNN convs, "bf16 chain" with the conv chain
+    cells = [(("piv", 1, "cudnn"), 1, MAIN_H, MAIN_W), (("piv", 1, "bf16"), 1, MAIN_H, MAIN_W),
+             (("piv", 1, "cudnn"), 4, 256, 256), (("piv", 1, "bf16"), 4, 256, 256),
+             (("piv", 2, "cudnn"), 1, MAIN_H, MAIN_W), (("piv", 2, "bf16"), 1, MAIN_H, MAIN_W),
+             (("piv", 2, "cudnn"), 4, 256, 256), (("piv", 2, "bf16"), 4, 256, 256)]
+    for version in (1, 2):
+        for b, h, w in ((1, MAIN_H, MAIN_W), (4, 256, 256)):
+            cells += [(("piv", version, "chain"), b, h, w), (("piv", version, "bf16 chain"), b, h, w)]
+    bf16_impl = {"bf16": "cudnn", "bf16 chain": "chain"}
+    for (family, version, conv_impl), b, h, w in cells:
+        model = (bf16_models[family, version, bf16_impl[conv_impl]] if conv_impl in bf16_impl
+                 else models[family, version, conv_impl])
         im1, im2 = particle_pair(b, h, w, seed=10 + b)
         t1, t2 = torch.from_numpy(im1).to(dev), torch.from_numpy(im2).to(dev)
         per_pair[family, version, conv_impl, b, h] = time_estimate(
             lambda: estimate(model, t1, t2, tensor=True), b,
             f"{family} v{version} {conv_impl} {h}x{w} b{b}, inputs and flow on the card",
-            card, CHAIN_ESTIMATE_ITERS if conv_impl == "chain" else ESTIMATE_ITERS)
+            card, CHAIN_ESTIMATE_ITERS if "chain" in conv_impl else ESTIMATE_ITERS)
     for version in (1, 2):
         f32_ms, bf16_ms = per_pair["piv", version, "cudnn", 1, MAIN_H], per_pair["piv", version, "bf16", 1, MAIN_H]
         log(f"  estimate piv v{version} {MAIN_H}x{MAIN_W} b1: bf16 {bf16_ms:.3f} against float32 "
             f"{f32_ms:.3f} ms/pair in this call (bf16/f32 {bf16_ms / f32_ms:.3f})  ({card})")
+        for b, h in ((1, MAIN_H), (4, 256)):
+            chain_ms = per_pair["piv", version, "bf16 chain", b, h]
+            log(f"  estimate piv v{version} {h}^2 b{b}: bf16 chain {chain_ms:.3f} ms/pair against bf16 cuDNN "
+                f"{per_pair['piv', version, 'bf16', b, h]:.3f} and float32 chain "
+                f"{per_pair['piv', version, 'chain', b, h]:.3f} in this call  ({card})")
     # what run.py pays per pair: numpy frames in, numpy flow out
     im1, im2 = particle_pair(1, MAIN_H, MAIN_W, seed=12)
     time_estimate(lambda: estimate(models["piv", 1, "cudnn"], im1[0], im2[0]), 1,
                   f"piv v1 cudnn {MAIN_H}x{MAIN_W} b1, numpy in and out", card)
     t1, t2 = torch.from_numpy(im1).to(dev), torch.from_numpy(im2).to(dev)
-    for name, model in (("float32", models["piv", 1, "cudnn"]), ("bf16", bf16_models["piv", 1])):
+    for name, model in (("float32", models["piv", 1, "cudnn"]), ("bf16", bf16_models["piv", 1, "cudnn"]),
+                        ("float32 chain", models["piv", 1, "chain"]),
+                        ("bf16 chain", bf16_models["piv", 1, "chain"])):
         gib = peak_memory(dev, lambda: estimate(model, t1, t2, tensor=True))
         log(f"  estimate piv v1 {name} {MAIN_H}x{MAIN_W} b1: peak device memory {gib:.3f} GiB beyond "
             f"the weights and inputs  ({card})")
@@ -976,7 +1073,7 @@ def time_all(dev, ops, models, bf16_models, card):
     # row) and the 6-conv v2 M and S stacks at level 2, each beside the cuDNN chain (its plain
     # version); the bound at the 3xTF32 rate (three TF32 products per multiply-add) and at the
     # f32 CUDA-core rate of the kernel before the tensor cores
-    cases = []
+    cases, cases_bf16 = [], []
     with torch.no_grad():
         for i, (name, parts_c, stack, last_k, last_linear, b, h, w) in enumerate(chain_cases()[:5]):
             parts, weights, biases = chain_stack(parts_c, stack, last_k, b, h, w, 40 + i, dev)
@@ -990,12 +1087,38 @@ def time_all(dev, ops, models, bf16_models, card):
                               bound_f32_ms=bound_f32[0], flops=flops))
             if name == "v1 S level 1":
                 rows["conv_chain"] = dict(ms=ms, plain_ms=plain_ms, library_ms=None, shape=shape,
-                                          bound=bound, bound_f32_ms=bound_f32[0], cases=cases)
+                                          bound=bound, bound_f32_ms=bound_f32[0], cases=cases,
+                                          ptxas=ptxas_lines(build_log, "conv_chain.cu"))
             log(f"  conv_chain     {shape:26s} {ms:.4f} ms  cuDNN chain {plain_ms:.4f} ms "
                 f"(kernel/cuDNN {ms / plain_ms:.3f})  3xTF32 bound {bound[0]:.4f} ms ({bound[1]}), "
                 f"{bound[0] / ms:.1%} of it; f32 bound {bound_f32[0]:.4f} ms, {bound_f32[0] / ms:.1%} "
                 f"of it  ({card})")
-            del parts, weights, biases
+            # the bf16 form on the same values rounded to bf16: through the op, alone into a
+            # preallocated output, its plain version, the model's bf16 cuDNN convs, and the bound
+            # at the bf16 rate; beside it the repacking of the parts (a proxy: the same transpose
+            # as one PyTorch copy, and its bytes)
+            pb, wb, bb = ([t.to(bf) for t in ts] for ts in (parts, weights, biases))
+            out = torch.empty((b, wb[-1].shape[0], h, w), device=dev, dtype=bf)
+            cin = sum(parts_c)
+            case = dict(shape=shape, ms=timer(lambda: chain.conv_chain(pb, wb, bb, last_linear), iters=10),
+                        launch_ms=timer(lambda: chain._launch(pb, wb, bb, last_linear, out), iters=10),
+                        f32_ms=ms, plain_ms=timer(lambda: chain.conv_chain_plain(pb, wb, bb, last_linear), iters=10),
+                        cudnn_ms=timer(lambda: cudnn_chain(pb, wb, bb, last_linear), iters=10),
+                        repack_proxy_ms=timer(lambda: torch.cat(pb, 1).permute(0, 2, 3, 1).contiguous(), iters=10),
+                        repack_bound_ms=2 * b * h * w * (cin + -(-cin // 8) * 8) / HBM_BYTES_PER_S * 1e3,
+                        bound=bound_ms(nbytes / 2, flops, BF16_FLOPS_PER_S), flops=flops)
+            cases_bf16.append(case)
+            if name == "v1 S level 1":
+                rows["conv_chain_bf16"] = dict(case, library_ms=None, cases=cases_bf16,
+                                               ptxas=rows["conv_chain"]["ptxas"])
+            log(f"  conv_chain_bf16 {shape:25s} {case['ms']:.4f} ms, alone {case['launch_ms']:.4f} ms; f32 form "
+                f"{ms:.4f}, bf16 cuDNN chain {case['cudnn_ms']:.4f}, plain bf16 {case['plain_ms']:.4f}; bf16 "
+                f"bound {case['bound'][0]:.4f} ms ({case['bound'][1]}), {case['bound'][0] / case['launch_ms']:.1%} "
+                f"of it; repacking the parts: proxy {case['repack_proxy_ms']:.4f} ms, bytes "
+                f"{case['repack_bound_ms']:.4f} ms  ({card})")
+            del parts, weights, biases, pb, wb, bb, out
+    for case in cases_bf16:
+        case["bound"] = case["bound"][0]
     for name, r in rows.items():
         lib = "null" if r["library_ms"] is None else f"{r['library_ms']:.4f}"
         alone = (f", kernel alone {r['launch_ms']:.4f} ms ({r['bound'][0] / r['launch_ms']:.1%} of the bound)"
@@ -1052,7 +1175,7 @@ def reset_counts(ops) -> None:
     corr, warp, rgb, chain = ops
     corr.launches = warp.launches = rgb.launches = chain.launches = 0
     corr.bwd_launches = warp.bwd_launches = 0
-    corr.bf16_launches = warp.bf16_launches = rgb.bf16_launches = 0
+    corr.bf16_launches = warp.bf16_launches = rgb.bf16_launches = chain.bf16_launches = 0
     corr.bwd_bf16_launches = warp.bwd_bf16_launches = 0
 
 
@@ -1063,7 +1186,8 @@ def read_counts(ops) -> dict:
             "conv_chain": chain.launches, "corr49_bwd": corr.bwd_launches,
             "backwarp_bwd": warp.bwd_launches, "corr49_bf16": corr.bf16_launches,
             "backwarp_bf16": warp.bf16_launches, "rgb_warp_norm_bf16": rgb.bf16_launches,
-            "backwarp_bwd_bf16": warp.bwd_bf16_launches, "corr49_bwd_bf16": corr.bwd_bf16_launches}
+            "backwarp_bwd_bf16": warp.bwd_bf16_launches, "corr49_bwd_bf16": corr.bwd_bf16_launches,
+            "conv_chain_bf16": chain.bf16_launches}
 
 
 def steps_on_one_batch(dev, step, state, batch, steps: int):
@@ -1523,7 +1647,7 @@ def main() -> int:
     log(f"  ({time.perf_counter() - t_start:.1f} s)")
 
     log("phase 4: times")
-    rows = time_all(dev, ops, sl.pop("models"), sl_bf16.pop("models"), card)
+    rows = time_all(dev, ops, sl.pop("models"), sl_bf16.pop("models"), card, res.log)
     log(f"  ({time.perf_counter() - t_start:.1f} s)")
 
     log("phase 5: training")
@@ -1540,7 +1664,7 @@ def main() -> int:
                "conv_chain": "conv_chain.cu", "backwarp_bwd": "backwarp_bwd.cu",
                "corr49_bwd": "corr49_bwd.cu", "corr49_bf16": "corr49.cu", "backwarp_bf16": "backwarp.cu",
                "rgb_warp_norm_bf16": "rgb_warp_norm.cu", "backwarp_bwd_bf16": "backwarp_bwd.cu",
-               "corr49_bwd_bf16": "corr49_bwd.cu"}
+               "corr49_bwd_bf16": "corr49_bwd.cu", "conv_chain_bf16": "conv_chain.cu"}
     replaces = {
         "corr49": "piv_liteflownet_tpu/ops/pallas_corr.py:66,162",
         "backwarp": "piv_liteflownet_tpu/ops/pallas_feat_warp.py:115",
@@ -1556,6 +1680,7 @@ def main() -> int:
         # the bf16 backward: K5 in g's dtype, and the XLA VJP of the bf16 shift-stack
         "backwarp_bwd_bf16": "piv_liteflownet_tpu/ops/pallas_warp_vjp.py:119",
         "corr49_bwd_bf16": "piv_liteflownet_tpu/ops/correlation.py:85",
+        "conv_chain_bf16": "piv_liteflownet_tpu/ops/pallas_conv.py:63",
     }
     paths = dict(sl["paths"], **sl_bf16["paths"])
     paths["train step piv v1 256^2 b8"] = tr["launches"]
@@ -1566,7 +1691,8 @@ def main() -> int:
            "conv_chain": PATH_V2_CHAIN, "backwarp_bwd": "train step piv v1 256^2 b8",
            "corr49_bwd": "train step piv v1 256^2 b8", "corr49_bf16": PATH_V1_BF16,
            "backwarp_bf16": PATH_V1_BF16, "rgb_warp_norm_bf16": PATH_V1_BF16,
-           "backwarp_bwd_bf16": PATH_TRAIN_V1_BF16, "corr49_bwd_bf16": PATH_TRAIN_V1_BF16}
+           "backwarp_bwd_bf16": PATH_TRAIN_V1_BF16, "corr49_bwd_bf16": PATH_TRAIN_V1_BF16,
+           "conv_chain_bf16": PATH_V1_BF16_CHAIN}
     kernels = [dict(
         name=name, route="cuda", source=f"piv_liteflownet_tpu_torch/csrc/{sources[name]}",
         replaces=replaces[name], launches=paths[own[name]][name],
@@ -1575,7 +1701,8 @@ def main() -> int:
         max_abs_err=errs[name], ms=r["ms"], plain_ms=r["plain_ms"], bound_ms=r["bound"][0],
         bound_by=r["bound"][1], library_ms=r["library_ms"],
         **{k: r[k] for k in ("launch_ms", "bound_f32_ms", "bound_workspace_ms", "f32_ms", "workspace_memset_ms",
-                             "round_pass_proxy_ms", "cases", "channel_scan") if k in r})
+                             "round_pass_proxy_ms", "cudnn_ms", "repack_proxy_ms", "repack_bound_ms", "ptxas",
+                             "cases", "channel_scan") if k in r})
         for name, r in rows.items()]
     if len(kernels) != len(sources) or any(k["launches"] == 0 for k in kernels):
         raise AssertionError(f"a kernel never launched on its path: {paths}")

@@ -40,7 +40,8 @@ def estimate(model: LiteFlowNet, img1, img2, tensor: bool = False, ops: Ops = KE
     img1/img2: ``[H,W,3]`` or ``[B,H,W,3]`` in [0, 1] (numpy or torch).
     Everything runs in the dtype of the model's parameters, as in the JAX
     package: float32, or bfloat16 after ``model.to(torch.bfloat16)`` (bf16
-    convs through cuDNN, which sums in float32; the kernels' bf16 forms).
+    convs through cuDNN, which sums in float32, or with ``conv_impl="chain"``
+    the conv chain's bf16 form; the kernels' bf16 forms).
     Returns a ``[B,H,W,2]`` torch tensor of that dtype on the model's device
     (with ``tensor=True`` or a batch), else an ``[H,W,2]`` numpy array: of
     float32 for a bf16 model, holding the bf16 values exactly, because torch

@@ -23,9 +23,9 @@ warp are ``torch.autograd.Function``s whose backward is a kernel as well
 (``csrc/corr49_bwd.cu``, ``csrc/backwarp_bwd.cu``); the occlusion norm has no
 gradient. With ``ModelConfig.conv_impl="chain"`` the eval forward runs each
 NetE-M/S/R conv stack of a level of at least 32x32 as one ``conv_chain``
-(``csrc/conv_chain.cu``, forward only); otherwise, and always in the train
-forward, the stacks are cuDNN convs. Convs, deconvs, resize, unfold and
-softmax stay cuDNN/PyTorch.
+(``csrc/conv_chain.cu``, forward only, in the params' dtype: float32 or
+bf16); otherwise, and always in the train forward, the stacks are cuDNN
+convs. Convs, deconvs, resize, unfold and softmax stay cuDNN/PyTorch.
 """
 
 from __future__ import annotations

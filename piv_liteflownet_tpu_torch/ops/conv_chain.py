@@ -18,6 +18,14 @@ tile, shared memory, packed-weight layout) that the wrapper passes to the
 kernel. The kernel has no backward, and the wrapper says so loudly: it raises
 whenever autograd would need a gradient, on both paths, rather than return a
 result cut from the graph.
+
+bfloat16 operands (all of them) take the kernel's bf16 form, C entry point
+``pivk_conv_chain_bf16``, and the output is bf16. It computes what the TPU
+kernel computes in bf16: every tap, channel and part summed in float32, the
+bias added and the LeakyReLU applied in float32, and one rounding to bf16 per
+layer; :func:`conv_chain_plain` follows the same rule. Its tensor-core layers
+multiply bf16 operands (one product per multiply-add, weights packed without
+a split).
 """
 
 from __future__ import annotations
@@ -45,12 +53,15 @@ MMA_WIDTHS = (64, 32)
 FFMA_MAX_COUT = 8
 MMA_TILE = (8, 32)     # output rows x columns of a tensor-core tile
 MMA_CHUNK = 16         # input channels per staged chunk (K is padded to it)
-MMA_PIXEL_WORDS = 20   # staged words per pixel of a chunk, and per weight row
+MMA_PIXEL_WORDS = 20   # staged words per pixel of a chunk, and per weight row (float32 form)
+MMA_PIXEL_WORDS_BF16 = 12  # the same in the bf16 form: 16 channels and 8 of padding
 FFMA_TILE = (32, 32)
 FFMA_CHUNK = 8
 
-#: Kernel launches made by :func:`conv_chain` (plain-path calls do not count).
+#: Kernel launches made by :func:`conv_chain` (plain-path calls do not count): the float32 form.
 launches = 0
+#: The same for the bf16 form.
+bf16_launches = 0
 
 # Packed weights per stack, keyed by the ids of its weight and bias tensors; an
 # entry holds weak references to them and is valid while they live, sit at the
@@ -60,7 +71,19 @@ _packs: Dict[Tuple[int, ...], tuple] = {}
 
 def conv_chain_plain(parts: Sequence[torch.Tensor], weights: Sequence[torch.Tensor],
                      biases: Sequence[torch.Tensor], last_linear: bool = True) -> torch.Tensor:
-    """The chain with ``F.conv2d``; the first conv is a sum of per-part convs (port of ``conv_chain_xla``)."""
+    """The chain with ``F.conv2d``; the first conv is a sum of per-part convs (port of ``conv_chain_xla``).
+
+    In bfloat16 it follows the TPU kernel, not ``conv_chain_xla`` in bf16: every conv in float32
+    on the widened values, the per-part convs of the first summed, the bias and the activation
+    in float32, and one rounding to bf16 per layer.
+    """
+    bf16 = parts[0].dtype == torch.bfloat16
+    if bf16:
+        parts, weights, biases = ([t.float() for t in ts] for ts in (parts, weights, biases))
+
+    def rounded(x: torch.Tensor) -> torch.Tensor:
+        return x.to(torch.bfloat16).float() if bf16 else x
+
     w0 = weights[0]
     acc = None
     off = 0
@@ -73,12 +96,14 @@ def conv_chain_plain(parts: Sequence[torch.Tensor], weights: Sequence[torch.Tens
     n = len(weights)
     if n > 1 or not last_linear:
         x = leaky_relu(x)
+    x = rounded(x)
     for i in range(1, n):
         w = weights[i]
         x = F.conv2d(x, w, biases[i], 1, (w.shape[2] // 2, w.shape[3] // 2))
         if i < n - 1 or not last_linear:
             x = leaky_relu(x)
-    return x
+        x = rounded(x)
+    return x.to(torch.bfloat16) if bf16 else x
 
 
 def _check(parts, weights, biases) -> None:
@@ -105,15 +130,11 @@ def conv_chain(parts: Sequence[torch.Tensor], weights: Sequence[torch.Tensor],
                biases: Sequence[torch.Tensor], last_linear: bool = True) -> torch.Tensor:
     """The chain; the kernel on CUDA, :func:`conv_chain_plain` on the CPU. Forward only.
 
-    Raises ``RuntimeError`` when grad mode is on and an operand requires grad, and
-    ``NotImplementedError`` for a bfloat16 operand on both paths (the kernel has no bf16 form yet).
+    Operands are all float32 or all bfloat16 (anything else raises ``TypeError``); the output
+    has their dtype. Raises ``RuntimeError`` when grad mode is on and an operand requires grad.
     """
     _check(parts, weights, biases)
     operands = [*parts, *weights, *biases]
-    if any(t.dtype == torch.bfloat16 for t in operands):
-        raise NotImplementedError(
-            "conv_chain has no bfloat16 form yet (ROADMAP.md, Queue 2 item 1): run a bf16 model "
-            "with conv_impl='cudnn'")
     if torch.is_grad_enabled() and any(t.requires_grad for t in operands):
         raise RuntimeError(
             "conv_chain is forward only and has no gradient: call it under torch.no_grad(), "
@@ -121,13 +142,16 @@ def conv_chain(parts: Sequence[torch.Tensor], weights: Sequence[torch.Tensor],
     parts = [p.contiguous() for p in parts]
     if not kernels.on_cuda("conv_chain", *parts, *(t.contiguous() for t in (*weights, *biases))):
         return conv_chain_plain(parts, weights, biases, last_linear)
-    global launches
+    global launches, bf16_launches
     b, _, h, w = parts[0].shape
-    out = torch.empty((b, weights[-1].shape[0], h, w), device=parts[0].device, dtype=torch.float32)
+    out = torch.empty((b, weights[-1].shape[0], h, w), device=parts[0].device, dtype=parts[0].dtype)
     if out.numel() == 0:
         return out
     _launch(parts, weights, biases, last_linear, out)
-    launches += 1
+    if out.dtype == torch.bfloat16:
+        bf16_launches += 1
+    else:
+        launches += 1
     return out
 
 
@@ -153,8 +177,9 @@ class LayerPlan:
     cin: int
     cout: int
     bn: int    # output channels per tile on the tensor-core path; 0: the FFMA path
-    woff: int  # offset of the layer's packed weights in the stack's buffer, in floats
+    woff: int  # offset of the layer's packed weights in the stack's buffer, in elements
     boff: int  # offset of its bias [cout]
+    dtype: torch.dtype = torch.float32
 
     @property
     def path(self) -> str:
@@ -170,44 +195,55 @@ class LayerPlan:
         return -(-self.cout // self.bn) * self.bn if self.bn else self.cout
 
     @property
-    def weight_floats(self) -> int:
-        """Packed weight floats: hi and lo on the tensor-core path, the weights as they are else."""
-        return (2 if self.bn else 1) * self.cin_pad * self.k * self.k * self.cout_pad
+    def weight_elems(self) -> int:
+        """Packed weight elements: on the tensor-core path hi and lo in float32, the bf16 weights
+        in bf16; the weights as they are on the FFMA path."""
+        split = 2 if self.bn and self.dtype == torch.float32 else 1
+        return split * self.cin_pad * self.k * self.k * self.cout_pad
 
     @property
     def smem(self) -> int:
         """Dynamic shared memory of the layer's block, in bytes (as the kernel computes it)."""
-        return _smem(self.k, self.bn, self.cout)
+        return _smem(self.k, self.bn, self.cout, self.dtype)
 
 
-def _smem(k: int, bn: int, cout: int) -> int:
-    if bn:  # the input chunk with its halo: two stages and a lo half; two of [kx][hi|lo][bn][ci]
+def _smem(k: int, bn: int, cout: int, dtype: torch.dtype = torch.float32) -> int:
+    if bn:
         th, tw = MMA_TILE
+        if dtype == torch.bfloat16:  # two stages of the input chunk with its halo; two of [kx][bn][ci]
+            a = (th + k - 1) * (tw + k - 1) * MMA_PIXEL_WORDS_BF16
+            return 4 * (2 * a + 2 * k * bn * MMA_PIXEL_WORDS_BF16)
+        # the input chunk with its halo: two stages and a lo half; two of [kx][hi|lo][bn][ci]
         a = (th + k - 1) * (tw + k - 1) * MMA_PIXEL_WORDS
         return 4 * (3 * a + 2 * k * 2 * bn * MMA_PIXEL_WORDS)
-    th, tw = FFMA_TILE  # the input tile with its halo, and the weights [ci][k][k][rc]
+    th, tw = FFMA_TILE  # the input tile with its halo, and the weights [ci][k][k][rc], in float32
     rc = 2 if cout <= 2 else 4 if cout <= 4 else 8
     return 4 * (FFMA_CHUNK * (th + k - 1) * ((tw + k - 1 + 3) & ~3) + FFMA_CHUNK * k * k * rc)
 
 
-def layer_plan(shapes: Sequence[Tuple[int, int, int]]) -> Tuple[LayerPlan, ...]:
-    """The kernel's plan of a stack of convs given as ``(k, cin, cout)``.
+def layer_plan(shapes: Sequence[Tuple[int, int, int]],
+               dtype: torch.dtype = torch.float32) -> Tuple[LayerPlan, ...]:
+    """The kernel's plan of a stack of convs given as ``(k, cin, cout)``, in the form of ``dtype``.
 
     A layer of more than ``FFMA_MAX_COUT`` output channels takes the tensor-core path with the
     widest channel tile of ``MMA_WIDTHS`` that is no wider than its channels rounded up to 32
     and whose shared memory fits ``SMEM_BUDGET``; the others take the FFMA path. Each layer's
-    packed weights start at a multiple of 4 floats (16-byte copies), then its bias.
+    packed weights start at a multiple of 16 bytes (4 floats, 8 bf16: 16-byte copies), then its
+    bias.
     """
+    align = 16 * 8 // torch.finfo(dtype).bits
     plans, off = [], 0
     for k, cin, cout in shapes:
         bn = 0
         if cout > FFMA_MAX_COUT:
-            bn = next(b for b in MMA_WIDTHS if b <= -(-cout // 32) * 32 and _smem(k, b, cout) <= SMEM_BUDGET)
-        plan = LayerPlan(k, cin, cout, bn, off, 0)
-        plan = dataclasses.replace(plan, boff=off + plan.weight_floats)
-        off = -(-(plan.boff + cout) // 4) * 4
+            bn = next(b for b in MMA_WIDTHS
+                      if b <= -(-cout // 32) * 32 and _smem(k, b, cout, dtype) <= SMEM_BUDGET)
+        plan = LayerPlan(k, cin, cout, bn, off, 0, dtype)
+        plan = dataclasses.replace(plan, boff=off + plan.weight_elems)
+        off = -(-(plan.boff + cout) // align) * align
         plans.append(plan)
     return tuple(plans)
+
 
 
 def _pack_layer(plan: LayerPlan, wt: torch.Tensor) -> torch.Tensor:
@@ -217,27 +253,30 @@ def _pack_layer(plan: LayerPlan, wt: torch.Tensor) -> torch.Tensor:
     k, bn, ck = plan.k, plan.bn, MMA_CHUNK
     padded = wt.new_zeros((plan.cout_pad, plan.cin_pad, k, k))
     padded[:plan.cout, :plan.cin] = wt
+    if wt.dtype == torch.bfloat16:  # no split: [cout/bn][chunk][ky][kx][bn][ci]
+        padded = padded.view(plan.cout_pad // bn, bn, plan.cin_pad // ck, ck, k, k)
+        return padded.permute(0, 2, 4, 5, 1, 3).reshape(-1)
     hl = torch.stack(tf32_split(padded))  # [hl][cout][cin][ky][kx]
     hl = hl.view(2, plan.cout_pad // bn, bn, plan.cin_pad // ck, ck, k, k)
     return hl.permute(1, 3, 5, 6, 0, 2, 4).reshape(-1)  # [cout/bn][chunk][ky][kx][hl][bn][ci]
 
 
 def _packed(weights: Sequence[torch.Tensor], biases: Sequence[torch.Tensor]) -> Tuple[torch.Tensor, tuple]:
-    """The stack's weights and biases in one buffer laid out by :func:`layer_plan`, and the plan;
-    cached per stack."""
+    """The stack's weights and biases in one buffer laid out by :func:`layer_plan` in their dtype,
+    and the plan; cached per stack and dtype."""
     tensors = [*weights, *biases]
     key = tuple(id(t) for t in tensors)
-    state = [(t.data_ptr(), t._version) for t in tensors]
+    state = [(t.data_ptr(), t._version, t.dtype) for t in tensors]
     hit = _packs.get(key)
     if hit is not None:
         refs, was, packed = hit
         if all(r() is t for r, t in zip(refs, tensors)) and was == state:
             return packed
-    plans = layer_plan([(wt.shape[2], wt.shape[1], wt.shape[0]) for wt in weights])
+    plans = layer_plan([(wt.shape[2], wt.shape[1], wt.shape[0]) for wt in weights], weights[0].dtype)
     with torch.no_grad():
         buf = weights[0].new_zeros(plans[-1].boff + plans[-1].cout)
         for plan, wt, bs in zip(plans, weights, biases):
-            buf[plan.woff:plan.woff + plan.weight_floats] = _pack_layer(plan, wt)
+            buf[plan.woff:plan.woff + plan.weight_elems] = _pack_layer(plan, wt)
             buf[plan.boff:plan.boff + plan.cout] = bs
     for k in [k for k, (refs, _, _) in _packs.items() if any(r() is None for r in refs)]:
         del _packs[k]
@@ -250,14 +289,17 @@ def _launch(parts: List[torch.Tensor], weights: Sequence[torch.Tensor],
     """The kernel call itself (a test can substitute a fake); it overwrites ``out``."""
     b, _, h, w = parts[0].shape
     packed, plans = _packed(weights, biases)
-    # NHWC intermediates, pixels (cout rounded up to 4) floats apart
-    mid = max(((p.cout + 3) & ~3 for p in plans[:-1]), default=4)
-    scratch = torch.empty((2, b * mid * h * w), device=out.device, dtype=torch.float32)
+    # NHWC intermediates, pixels (cout rounded up to 16 bytes) elements apart; the bf16 form also
+    # repacks the parts into the second buffer
+    v = 16 // out.element_size()
+    widths = [p.cout for p in plans[:-1]] + ([plans[0].cin] if out.dtype == torch.bfloat16 else [])
+    mid = max((-(-c // v) * v for c in widths), default=v)
+    scratch = torch.empty((2, b * mid * h * w), device=out.device, dtype=out.dtype)
     part_ptrs = (ctypes.c_void_p * len(parts))(*(p.data_ptr() for p in parts))
     part_c = (ctypes.c_int * len(parts))(*(p.shape[1] for p in parts))
     c_plan = (ctypes.c_int * (5 * len(plans)))(
         *(v for p in plans for v in (p.k, p.cout, p.bn, p.woff, p.boff)))
-    kernels.launch("pivk_conv_chain_f32", "conv_chain", out.device,
+    kernels.launch(kernels.entry("conv_chain", out.dtype), "conv_chain", out.device,
                    ctypes.addressof(part_ptrs), ctypes.addressof(part_c), len(parts),
                    ctypes.addressof(c_plan), len(plans), packed.data_ptr(),
                    scratch[0].data_ptr(), scratch[1].data_ptr(), out.data_ptr(), b, h, w,

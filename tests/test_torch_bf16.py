@@ -20,8 +20,9 @@ sides:
   other by as much;
 - the contracts: the result's dtype, no float32 tensor inside the bf16
   forward, ``run --bf16`` writes float32 ``.flo`` files, what raises
-  (``conv_impl="chain"`` in bf16, mixed dtypes), and a bf16 backward that
-  reaches the backward kernels' bf16 forms (bf16 training:
+  (float16 and mixed dtypes; ``conv_impl="chain"`` in bf16 reaches the conv
+  chain's bf16 form: tests/test_torch_conv_chain_bf16.py), and a bf16
+  backward that reaches the backward kernels' bf16 forms (bf16 training:
   tests/test_torch_bf16_train.py);
 - the bf16 launches through faked kernels: only ``pivk_*_bf16`` entry points,
   with the arguments of their float32 forms, and the cost volume's bf16 tile
@@ -244,14 +245,29 @@ def test_run_cli_bf16_writes_float32_flo(tmp_path):
 
 # -- what raises -------------------------------------------------------------------------
 
-def test_bf16_with_the_conv_chain_raises():
+def test_bf16_with_the_conv_chain_raises(monkeypatch):
+    """A bf16 estimate with ``conv_impl="chain"`` reaches the chain's bf16 entry point (faked), and
+    a float16 chain raises. (The name is from when the chain had no bf16 form and this estimate
+    raised; the test is kept under it, its contract changed.)"""
+    z = torch.zeros(1, 4, 8, 8, dtype=torch.float16)
+    with pytest.raises(TypeError, match="float32 or bfloat16"):
+        conv_chain.conv_chain([z], [torch.zeros(2, 4, 3, 3, dtype=torch.float16)],
+                              [torch.zeros(2, dtype=torch.float16)])
+    _fake_kernels(monkeypatch)
+    calls = []
+
+    def chain_launch(parts, weights, biases, last_linear, out):
+        monkeypatch.setattr(kernels, "launch", lambda name, *a: calls.append((name, out.dtype)))
+        real_chain_launch(parts, weights, biases, last_linear, out)
+        out.copy_(conv_chain.conv_chain_plain(parts, weights, biases, last_linear))
+
+    real_chain_launch = conv_chain._launch
+    monkeypatch.setattr(conv_chain, "_launch", chain_launch)
     model = piv_liteflownet(version=1, seed=0, device="cpu", conv_impl="chain").to(BF16)
     img1, img2 = _pair(64, 64, seed=7, b=1)
-    with pytest.raises(NotImplementedError, match="ROADMAP.md"):
-        estimate(model, img1, img2)
-    z = torch.zeros(1, 4, 8, 8, dtype=BF16)
-    with pytest.raises(NotImplementedError, match="bfloat16"):
-        conv_chain.conv_chain([z], [torch.zeros(2, 4, 3, 3, dtype=BF16)], [torch.zeros(2, dtype=BF16)])
+    flow = estimate(model, img1, img2, tensor=True)
+    assert flow.dtype == BF16 and bool(torch.isfinite(flow.float()).all())
+    assert calls == [("pivk_conv_chain_bf16", BF16)] * 6  # the M, S and R stacks at 32 and 64
 
 
 def test_mixed_dtypes_raise():

@@ -246,7 +246,7 @@ def test_packed_weights_layout_and_cache():
     p0, p1 = plans
     assert (p0.path, p0.bn, p0.cin_pad, p0.cout_pad) == ("mma", 32, 16, 32)
     # the tensor-core layer: [cout/32][chunk][ky][kx][hi|lo][32][ci 16], cin and cout padded with 0
-    hl = packed[:p0.weight_floats].view(1, 1, 3, 3, 2, 32, 16).permute(4, 0, 5, 1, 6, 2, 3).reshape(2, 32, 16, 3, 3)
+    hl = packed[:p0.weight_elems].view(1, 1, 3, 3, 2, 32, 16).permute(4, 0, 5, 1, 6, 2, 3).reshape(2, 32, 16, 3, 3)
     hi, lo = cc.tf32_split(weights[0])
     assert torch.equal(hl[0, :16, :5], hi) and torch.equal(hl[1, :16, :5], lo)
     assert not hl[:, 16:].any() and not hl[:, :, 5:].any()

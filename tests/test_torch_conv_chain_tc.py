@@ -151,7 +151,7 @@ def test_layer_plan_of_every_model_stack(family, version):
                 assert plan.bn in cc.MMA_WIDTHS and plan.cin_pad % 8 == 0 and plan.cin_pad >= cin
                 assert plan.cout_pad % plan.bn == 0 and plan.cout_pad - cout < plan.bn
                 assert plan.woff % 4 == 0  # the kernel copies weights 16 bytes at a time
-            assert plan.woff >= off and plan.boff == plan.woff + plan.weight_floats
+            assert plan.woff >= off and plan.boff == plan.woff + plan.weight_elems
             off = plan.boff + cout
         n_stacks += 1
     assert n_stacks == 3 * len(model.cfg.levels)
@@ -210,7 +210,7 @@ def test_packed_weights_read_back_with_the_kernel_index(shapes):
     for plan, wt, bs in zip(plans, weights, biases):
         np.testing.assert_array_equal(packed[plan.boff:plan.boff + plan.cout].numpy(), bs.numpy())
         if plan.path == "ffma":
-            got = packed[plan.woff:plan.woff + plan.weight_floats].view(plan.cin, plan.k, plan.k, plan.cout)
+            got = packed[plan.woff:plan.woff + plan.weight_elems].view(plan.cin, plan.k, plan.k, plan.cout)
             assert torch.equal(got.permute(3, 0, 1, 2), wt)
             continue
         hl = _read_back(packed, plan)
