@@ -92,7 +92,10 @@ the script exits non-zero without the final line.
    multiply-add, 495/3 TFLOP/s) and at the f32 CUDA-core rate, and its bf16
    form there through the op and alone, beside the f32 form, the bf16 cuDNN
    chain and its bound at the bf16 rate (989 TFLOP/s), with ``ptxas``'s
-   registers and spills. bf16 ``estimate``, with cuDNN convs and with the
+   registers and spills, and where its time goes: each layer of the v1
+   level-1 M, S and R stacks as a one-layer chain at its own shape, beside
+   its bf16 bound, and the repacking of its input alone (a zero-layer
+   launch; ``chain_layer_split``). bf16 ``estimate``, with cuDNN convs and with the
    chain, right after float32 for the same model and size (1024^2 b1 and
    256^2 b4), and the peak memory of each; ``rgb_warp_norm`` and
    ``backwarp`` (as ``corr49``) also alone into a preallocated output
@@ -141,6 +144,7 @@ prints no result.
 
 from __future__ import annotations
 
+import ctypes
 import json
 import math
 import subprocess
@@ -957,6 +961,66 @@ def ptxas_lines(build_log: str, source: str) -> list:
     return lines
 
 
+def repack_alone(chain, parts, scratch) -> None:
+    """The bf16 form's repacking of ``parts`` into ``scratch[1]`` alone: a zero-layer launch of
+    ``pivk_conv_chain_bf16`` (raises where the library does not take one). ``scratch`` is
+    ``[2, b*h*w*stride + 8]`` bf16: the launch's grid barrier counter follows ``scratch[1]``'s
+    pixels."""
+    from piv_liteflownet_tpu_torch import kernels
+
+    b, _, h, w = parts[0].shape
+    part_ptrs = (ctypes.c_void_p * len(parts))(*(p.data_ptr() for p in parts))
+    part_c = (ctypes.c_int * len(parts))(*(p.shape[1] for p in parts))
+    kernels.launch("pivk_conv_chain_bf16", "conv_chain", parts[0].device, ctypes.addressof(part_ptrs),
+                   ctypes.addressof(part_c), len(parts), None, 0, None, scratch[0].data_ptr(),
+                   scratch[1].data_ptr(), None, b, h, w, 0)
+
+
+def chain_layer_split(dev, chain, timer, card, tag: str = "") -> list:
+    """Where the bf16 chain's time goes: each layer of the piv v1 level-1 M, S and R stacks of a
+    1024^2 pair as a one-layer ``conv_chain`` at its own shape (its input: the stack's parts for
+    layer 0, one ``[1,cin,1024,1024]`` part after), alone into a preallocated output, beside its
+    bf16 bound; and the repacking of the same input alone, as a zero-layer launch where the
+    library takes one (``repack_ms``, else None) and as a 1x1 conv to 2 channels on the FFMA path
+    (``repack_1x1_ms``). A one-layer chain repacks its input first and writes its output NCHW, as a
+    stack's last layer does; ``layer_ms`` is its time less ``repack_ms`` (or the 1x1 proxy)."""
+    bf = torch.bfloat16
+    rows = []
+    with torch.no_grad():
+        for i, (name, parts_c, stack, last_k, last_linear, b, h, w) in enumerate(chain_cases()[:3]):
+            _, weights, biases = chain_stack(parts_c, stack, last_k, b, h, w, 60 + i, dev)
+            for j, (wt, bs) in enumerate(zip(weights, biases)):
+                cin, cout, k = wt.shape[1], wt.shape[0], wt.shape[2]
+                widths = parts_c if j == 0 else [cin]
+                parts = [(randn((b, c, h, w), 70 + 10 * i + j, dev) * 0.5).to(bf) for c in widths]
+                wb, bb = wt.to(bf), bs.to(bf)
+                out = torch.empty((b, cout, h, w), device=dev, dtype=bf)
+                ms = timer(lambda: chain._launch(parts, [wb], [bb], False, out), iters=10)
+                w2 = (randn((2, cin, 1, 1), 90 + j, dev) / math.sqrt(cin)).to(bf)
+                out2 = torch.empty((b, 2, h, w), device=dev, dtype=bf)
+                proxy = timer(lambda: chain._launch(parts, [w2], [bb[:2]], False, out2), iters=10)
+                scratch = torch.empty((2, b * h * w * -(-cin // 8) * 8 + 8), device=dev, dtype=bf)
+                try:
+                    repack = timer(lambda: repack_alone(chain, parts, scratch), iters=10)
+                except RuntimeError:
+                    repack = None
+                macs = cin * cout * k * k * b * h * w
+                nbytes = 2 * (b * h * w * (cin + cout) + wt.numel() + cout)
+                bound = bound_ms(nbytes, 2 * macs, BF16_FLOPS_PER_S)
+                plan = chain.layer_plan([(k, cin, cout)], bf)[0]
+                layer = ms - (repack if repack is not None else proxy)
+                rows.append(dict(stack=name, layer=j, k=k, cin=cin, cout=cout, bn=plan.bn, smem=plan.smem, ms=ms,
+                                 repack_ms=repack, repack_1x1_ms=proxy, layer_ms=layer, bound_ms=bound[0],
+                                 bound_by=bound[1]))
+                log(f"  conv_chain_bf16 split{tag} {name} layer {j} ({k}x{k} {cin}->{cout}, BN {plan.bn}, "
+                    f"{plan.smem} B shared): one-layer chain {ms:.4f} ms; repacking alone "
+                    f"{'n/a' if repack is None else f'{repack:.4f}'}, 1x1 to 2 {proxy:.4f}; the layer "
+                    f"{layer:.4f} ms against its bf16 bound {bound[0]:.4f} ({bound[1]}, "
+                    f"{bound[0] / max(layer, 1e-9):.1%} of it)  ({card})")
+                del parts, out, out2, scratch
+    return rows
+
+
 def time_all(dev, ops, models, bf16_models, card, build_log):
     from piv_liteflownet_tpu_torch.inference import estimate
     from piv_liteflownet_tpu_torch.utils.synthetic import particle_pair
@@ -1119,6 +1183,7 @@ def time_all(dev, ops, models, bf16_models, card, build_log):
             del parts, weights, biases, pb, wb, bb, out
     for case in cases_bf16:
         case["bound"] = case["bound"][0]
+    rows["conv_chain_bf16"]["layer_split"] = chain_layer_split(dev, chain, timer, card)
     for name, r in rows.items():
         lib = "null" if r["library_ms"] is None else f"{r['library_ms']:.4f}"
         alone = (f", kernel alone {r['launch_ms']:.4f} ms ({r['bound'][0] / r['launch_ms']:.1%} of the bound)"
@@ -1702,7 +1767,7 @@ def main() -> int:
         bound_by=r["bound"][1], library_ms=r["library_ms"],
         **{k: r[k] for k in ("launch_ms", "bound_f32_ms", "bound_workspace_ms", "f32_ms", "workspace_memset_ms",
                              "round_pass_proxy_ms", "cudnn_ms", "repack_proxy_ms", "repack_bound_ms", "ptxas",
-                             "cases", "channel_scan") if k in r})
+                             "cases", "channel_scan", "layer_split") if k in r})
         for name, r in rows.items()]
     if len(kernels) != len(sources) or any(k["launches"] == 0 for k in kernels):
         raise AssertionError(f"a kernel never launched on its path: {paths}")

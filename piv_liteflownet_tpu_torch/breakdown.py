@@ -28,7 +28,7 @@ from typing import Iterable, List, Tuple
 import torch
 
 GROUPS = (
-    ("conv_chain", ("conv_chain_kernel",)),
+    ("conv_chain", ("conv_chain_f32_kernel", "conv_chain_bf16_kernel")),
     ("corr49", ("corr49_kernel",)),
     ("backwarp", ("backwarp_kernel",)),
     ("rgb_warp_norm", ("rgb_warp_norm_kernel",)),

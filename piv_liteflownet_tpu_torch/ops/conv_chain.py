@@ -24,8 +24,10 @@ bfloat16 operands (all of them) take the kernel's bf16 form, C entry point
 kernel computes in bf16: every tap, channel and part summed in float32, the
 bias added and the LeakyReLU applied in float32, and one rounding to bf16 per
 layer; :func:`conv_chain_plain` follows the same rule. Its tensor-core layers
-multiply bf16 operands (one product per multiply-add, weights packed without
-a split).
+run ``wgmma`` on bf16 operands (one product per multiply-add), fed by TMA
+loads of the NHWC scratch through a tensor map per layer (:func:`tma_box`)
+and by bulk copies of weights packed in the image the kernel's B descriptor
+reads (:func:`_pack_layer`, :func:`b_image_offset`).
 """
 
 from __future__ import annotations
@@ -54,7 +56,10 @@ FFMA_MAX_COUT = 8
 MMA_TILE = (8, 32)     # output rows x columns of a tensor-core tile
 MMA_CHUNK = 16         # input channels per staged chunk (K is padded to it)
 MMA_PIXEL_WORDS = 20   # staged words per pixel of a chunk, and per weight row (float32 form)
-MMA_PIXEL_WORDS_BF16 = 12  # the same in the bf16 form: 16 channels and 8 of padding
+#: Channel tiles of the bf16 form's tensor-core path (the N of its ``wgmma``).
+MMA_WIDTHS_BF16 = (128, 96, 64, 32)
+TC_COLS = 64           # bf16 form: staged columns of an input tile (the pixels of an m64 block)
+TC_STAGES = (3, 6)     # bf16 form: stages of the input ring and of the weight ring
 FFMA_TILE = (32, 32)
 FFMA_CHUNK = 8
 
@@ -207,12 +212,27 @@ class LayerPlan:
         return _smem(self.k, self.bn, self.cout, self.dtype)
 
 
+def tile_rows(bn: int) -> int:
+    """Output rows of a bf16 tensor-core tile at channel tile ``bn``: two consumer warpgroups, each
+    with half the rows as m64 blocks of ``bn / 2`` float32 sums a thread, at most 128."""
+    return 4 if bn >= 96 else 512 // bn
+
+
+def tile_cols(k: int) -> int:
+    """Valid output columns of a bf16 tensor-core tile: the 64 staged columns less the halo."""
+    return TC_COLS - (k - 1)
+
+
 def _smem(k: int, bn: int, cout: int, dtype: torch.dtype = torch.float32) -> int:
     if bn:
         th, tw = MMA_TILE
-        if dtype == torch.bfloat16:  # two stages of the input chunk with its halo; two of [kx][bn][ci]
-            a = (th + k - 1) * (tw + k - 1) * MMA_PIXEL_WORDS_BF16
-            return 4 * (2 * a + 2 * k * bn * MMA_PIXEL_WORDS_BF16)
+        if dtype == torch.bfloat16:
+            # the input ring: two 8-channel planes of (rows + k - 1) x 64 pixels of 16 bytes and 8
+            # spare pixels; the weight ring: (chunk, ky) slices of k x bn x 16 bf16; an epilogue tile
+            # [64][bn + 8] bf16 per consumer warpgroup; 1024 bytes to align the rings
+            plane = ((tile_rows(bn) + k - 1) * TC_COLS + 8) * 16
+            na, nb = TC_STAGES
+            return 1024 + na * 2 * plane + nb * k * bn * MMA_CHUNK * 2 + 2 * TC_COLS * (bn + 8) * 2
         # the input chunk with its halo: two stages and a lo half; two of [kx][hi|lo][bn][ci]
         a = (th + k - 1) * (tw + k - 1) * MMA_PIXEL_WORDS
         return 4 * (3 * a + 2 * k * 2 * bn * MMA_PIXEL_WORDS)
@@ -225,17 +245,22 @@ def layer_plan(shapes: Sequence[Tuple[int, int, int]],
                dtype: torch.dtype = torch.float32) -> Tuple[LayerPlan, ...]:
     """The kernel's plan of a stack of convs given as ``(k, cin, cout)``, in the form of ``dtype``.
 
-    A layer of more than ``FFMA_MAX_COUT`` output channels takes the tensor-core path with the
-    widest channel tile of ``MMA_WIDTHS`` that is no wider than its channels rounded up to 32
-    and whose shared memory fits ``SMEM_BUDGET``; the others take the FFMA path. Each layer's
-    packed weights start at a multiple of 16 bytes (4 floats, 8 bf16: 16-byte copies), then its
-    bias.
+    A layer of more than ``FFMA_MAX_COUT`` output channels takes the tensor-core path; the others
+    take the FFMA path. Its channel tile in float32 is the widest of ``MMA_WIDTHS`` that is no
+    wider than its channels rounded up to 32 and whose shared memory fits ``SMEM_BUDGET``; in
+    bf16, of the tiles of ``MMA_WIDTHS_BF16`` that fit, the one that makes the fewest channel tiles
+    (each stages and reads the input tile again), and of those the one that computes the fewest
+    channels (``ceil(cout / bn) * bn``). Each layer's packed weights start at a
+    multiple of 16 bytes (4 floats, 8 bf16: 16-byte copies), then its bias.
     """
     align = 16 * 8 // torch.finfo(dtype).bits
     plans, off = [], 0
     for k, cin, cout in shapes:
         bn = 0
-        if cout > FFMA_MAX_COUT:
+        if cout > FFMA_MAX_COUT and dtype == torch.bfloat16:
+            fits = [b for b in MMA_WIDTHS_BF16 if _smem(k, b, cout, dtype) <= SMEM_BUDGET]
+            bn = min(fits, key=lambda b: (-(-cout // b), -(-cout // b) * b))
+        elif cout > FFMA_MAX_COUT:
             bn = next(b for b in MMA_WIDTHS
                       if b <= -(-cout // 32) * 32 and _smem(k, b, cout, dtype) <= SMEM_BUDGET)
         plan = LayerPlan(k, cin, cout, bn, off, 0, dtype)
@@ -253,12 +278,41 @@ def _pack_layer(plan: LayerPlan, wt: torch.Tensor) -> torch.Tensor:
     k, bn, ck = plan.k, plan.bn, MMA_CHUNK
     padded = wt.new_zeros((plan.cout_pad, plan.cin_pad, k, k))
     padded[:plan.cout, :plan.cin] = wt
-    if wt.dtype == torch.bfloat16:  # no split: [cout/bn][chunk][ky][kx][bn][ci]
-        padded = padded.view(plan.cout_pad // bn, bn, plan.cin_pad // ck, ck, k, k)
-        return padded.permute(0, 2, 4, 5, 1, 3).reshape(-1)
+    if wt.dtype == torch.bfloat16:  # no split: [cout/bn][chunk][ky][kx] B images, see b_image_offset
+        padded = padded.view(plan.cout_pad // bn, bn // 8, 8, plan.cin_pad // ck, 2, 8, k, k)
+        return padded.permute(0, 3, 6, 7, 1, 4, 2, 5).reshape(-1)
     hl = torch.stack(tf32_split(padded))  # [hl][cout][cin][ky][kx]
     hl = hl.view(2, plan.cout_pad // bn, bn, plan.cin_pad // ck, ck, k, k)
     return hl.permute(1, 3, 5, 6, 0, 2, 4).reshape(-1)  # [cout/bn][chunk][ky][kx][hl][bn][ci]
+
+
+def b_image_offset(n: int, ci: int) -> int:
+    """Where the bf16 form's B descriptor reads output channel ``n`` (of the tile) and input channel
+    ``ci`` (of the chunk) in a tap's image, in elements: core matrices of 8 output x 8 input
+    channels (128 bytes, rows of 16 bytes), the second 8 input channels 128 bytes on (LBO), the
+    next 8 output channels 256 bytes on (SBO). No swizzle: each core matrix is 128 contiguous
+    bytes. A (chunk, ky) stage holds the k taps' images, ``bn * 16`` elements apart."""
+    return (n // 8) * 128 + (ci // 8) * 64 + (n % 8) * 8 + ci % 8
+
+
+@dataclasses.dataclass(frozen=True)
+class TmaBox:
+    """The tensor map the bf16 form encodes for a tensor-core layer's input, the NHWC scratch, as
+    ``cuTensorMapEncodeTiled`` takes it (innermost dimension first)."""
+
+    dims: Tuple[int, int, int, int]     # (C, W, H, B) elements
+    strides: Tuple[int, int, int]       # bytes between consecutive W, H and B indices
+    box: Tuple[int, int, int, int]      # elements of one load: 8 channels x 64 columns x rows x 1
+
+
+def tma_box(plan: LayerPlan, b: int, h: int, w: int) -> TmaBox:
+    """The tensor map of ``plan``'s input (a bf16 tensor-core layer) for a ``[b, cin, h, w]`` map,
+    as ``csrc/conv_chain.cu:encode_input_map`` encodes it: pixels ``cin`` rounded up to 8 bf16
+    apart; a box is one 8-channel plane of the tile's ``tile_rows(bn) + k - 1`` rows by 64 columns
+    (the channels past ``cin`` and the pixels off the map read as zeros)."""
+    px = -(-plan.cin // 8) * 8 * 2
+    return TmaBox((plan.cin, w, h, b), (px, px * w, px * w * h),
+                  (8, TC_COLS, tile_rows(plan.bn) + plan.k - 1, 1))
 
 
 def _packed(weights: Sequence[torch.Tensor], biases: Sequence[torch.Tensor]) -> Tuple[torch.Tensor, tuple]:
@@ -290,11 +344,13 @@ def _launch(parts: List[torch.Tensor], weights: Sequence[torch.Tensor],
     b, _, h, w = parts[0].shape
     packed, plans = _packed(weights, biases)
     # NHWC intermediates, pixels (cout rounded up to 16 bytes) elements apart; the bf16 form also
-    # repacks the parts into the second buffer
+    # repacks the parts into the second buffer, which 16 bytes for its grid barrier's counter follow
     v = 16 // out.element_size()
-    widths = [p.cout for p in plans[:-1]] + ([plans[0].cin] if out.dtype == torch.bfloat16 else [])
+    bf16 = out.dtype == torch.bfloat16
+    widths = [p.cout for p in plans[:-1]] + ([plans[0].cin] if bf16 else [])
     mid = max((-(-c // v) * v for c in widths), default=v)
-    scratch = torch.empty((2, b * mid * h * w), device=out.device, dtype=out.dtype)
+    n = b * mid * h * w
+    scratch = torch.empty(2 * n + (v if bf16 else 0), device=out.device, dtype=out.dtype)
     part_ptrs = (ctypes.c_void_p * len(parts))(*(p.data_ptr() for p in parts))
     part_c = (ctypes.c_int * len(parts))(*(p.shape[1] for p in parts))
     c_plan = (ctypes.c_int * (5 * len(plans)))(
@@ -302,5 +358,5 @@ def _launch(parts: List[torch.Tensor], weights: Sequence[torch.Tensor],
     kernels.launch(kernels.entry("conv_chain", out.dtype), "conv_chain", out.device,
                    ctypes.addressof(part_ptrs), ctypes.addressof(part_c), len(parts),
                    ctypes.addressof(c_plan), len(plans), packed.data_ptr(),
-                   scratch[0].data_ptr(), scratch[1].data_ptr(), out.data_ptr(), b, h, w,
+                   scratch.data_ptr(), scratch[n:].data_ptr(), out.data_ptr(), b, h, w,
                    int(last_linear))

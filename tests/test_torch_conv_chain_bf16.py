@@ -21,8 +21,10 @@ Here, on the CPU, from seeded numpy inputs cast to bf16 on both sides:
   |flow|, as in tests/test_torch_bf16.py (measured: the two bf16 flows 1.2 % of it apart, each
   0.9 % from the float32 flow);
 - through faked kernels: a bf16 chain model launches ``pivk_conv_chain_bf16`` only, with a bf16
-  output and bf16 scratch; the bf16 packed weights read back with the kernel's own index; the
-  bf16 plan of every NetE stack fits the shared memory a block may take.
+  output and bf16 scratch; the bf16 packed weights read back through the kernel's B-descriptor
+  image; the bf16 plan and tensor maps of every NetE stack fit the shared memory a block may take
+  and TMA's limits; and the kernel's addressing and order, emulated on the CPU, agree with the
+  plain chain.
 
 The ``gpu`` tests hold the kernel to its plain version on the card.
 """
@@ -237,26 +239,27 @@ def test_bf16_launch_passes_the_bf16_plan_and_scratch(monkeypatch):
 
 
 def _read_back_bf16(packed, plan):
-    """The weight ``[Cout,Cin,k,k]`` as the bf16 form reads it: stage (nb, chunk, ky) at
-    woff + stage * K*BN*16, row (kx, n) of 16 input channels at + (kx * BN + n) * 16."""
+    """The weight ``[Cout,Cin,k,k]`` as the bf16 form's B descriptor reads it: stage (nb, chunk, ky)
+    at woff + stage * K*BN*16, tap kx's image at + kx * BN*16, output channel n and input channel ci
+    of the chunk at + ``b_image_offset(n, ci)`` (8x8 core matrices, no swizzle)."""
     k, bn, ck = plan.k, plan.bn, cc.MMA_CHUNK
     nch, nnb = plan.cin_pad // ck, plan.cout_pad // bn
     w = np.zeros((plan.cout_pad, plan.cin_pad, k, k), np.float32)
     flat = packed.float().numpy()
+    n, ci = np.meshgrid(np.arange(bn), np.arange(ck), indexing="ij")
+    image = np.vectorize(cc.b_image_offset)(n, ci)
     for nb in range(nnb):
         for c in range(nch):
             for ky in range(k):
                 stage = plan.woff + ((nb * nch + c) * k + ky) * k * bn * ck
                 for kx in range(k):
-                    for n in range(bn):
-                        row = stage + (kx * bn + n) * ck
-                        w[nb * bn + n, c * ck:(c + 1) * ck, ky, kx] = flat[row:row + ck]
+                    w[nb * bn:(nb + 1) * bn, c * ck:(c + 1) * ck, ky, kx] = flat[stage + kx * bn * ck + image]
     return w
 
 
 @pytest.mark.parametrize("shapes", [
     [(3, 20, 24), (7, 24, 2)],                # padded cin and cout, then the FFMA path
-    [(3, 49, 96), (3, 96, 12), (3, 12, 8)],   # 96 channels in two tiles; 12 on the tensor cores
+    [(3, 49, 96), (3, 96, 12), (3, 12, 8)],   # a 96-channel tile; 12 on the tensor cores
     [(5, 18, 128), (1, 128, 40), (7, 40, 64)],  # k 5, k 1, and k 7 with 64 channels (bf16 only)
 ])
 def test_bf16_packed_weights_read_back_with_the_kernel_index(shapes):
@@ -289,10 +292,15 @@ def _model_stacks(model):
             yield f"{name} level {level}", [(c.kernel_size[0], c.in_channels, c.out_channels) for c in convs]
 
 
-@pytest.mark.parametrize("family,version", [("piv", 1), ("piv", 2), ("hui", 1), ("hui", 2)])
+FAMILIES = [("piv", 1), ("piv", 2), ("hui", 1), ("hui", 2)]
+
+
+@pytest.mark.parametrize("family,version", FAMILIES)
 def test_bf16_plan_of_every_model_stack_fits(family, version):
-    """Every NetE stack's bf16 plan fits ``SMEM_BUDGET``, and two blocks of it fit an SM (the bf16
-    form is compiled for two; 228 KB an SM, 1 KB of it reserved per block, under 1 KB static)."""
+    """Every NetE stack's bf16 plan fits ``SMEM_BUDGET`` with one block of 384 threads per SM (the
+    bf16 form's two consumer warpgroups and its producer; 228 KB an SM, 1 KB of it reserved per
+    block, under 1 KB static), and every tensor-core layer of the models (128, 96, 64 or 32
+    channels) gets a channel tile as wide as its channels: no channel computed in vain."""
     build = piv_liteflownet if family == "piv" else hui_liteflownet
     model = build(seed=0, version=version, device="cpu")
     for name, shapes in _model_stacks(model):
@@ -300,19 +308,138 @@ def test_bf16_plan_of_every_model_stack_fits(family, version):
         for plan, (k, cin, cout) in zip(plans, shapes):
             assert (plan.k, plan.cin, plan.cout, plan.dtype) == (k, cin, cout, BF16)
             assert plan.path == ("mma" if cout >= 16 else "ffma"), (name, plan)
-            assert plan.smem <= cc.SMEM_BUDGET and 2 * (plan.smem + 2048) <= 233472, (name, plan)
+            assert plan.smem <= cc.SMEM_BUDGET and plan.smem + 2048 <= 233472, (name, plan)
             assert plan.woff % 8 == 0
+            if plan.bn:
+                assert plan.bn == cout and plan.bn in cc.MMA_WIDTHS_BF16, (name, plan)
+
+
+def test_bf16_channel_tile_rule():
+    """The bf16 tile makes the fewest channel tiles of those that fit, and of those computes the
+    fewest channels; a 7x7 layer of 128 channels does not fit BN 128 (the weight ring of 7 taps)
+    and takes two tiles of 64."""
+    def bn(k, cout):
+        return cc.layer_plan([(k, 16, cout)], BF16)[0].bn
+
+    assert [bn(3, c) for c in (128, 96, 64, 32, 100, 48, 24, 12, 200)] == [128, 96, 64, 32, 128, 64, 32, 32, 128]
+    assert bn(7, 128) == 64 and cc._smem(7, 128, 128, BF16) > cc.SMEM_BUDGET
+    assert all(cc._smem(k, b, 0, BF16) <= cc.SMEM_BUDGET
+               for k in cc.KERNEL_SIZES for b in cc.MMA_WIDTHS_BF16 if (k, b) != (7, 128))
+
+
+@pytest.mark.parametrize("family,version", FAMILIES)
+def test_tma_box_of_every_model_stack(family, version):
+    """The tensor map of every bf16 tensor-core layer's input at the stack's sizes of a 1024^2 pair,
+    as ``cuTensorMapEncodeTiled`` requires it: strides multiples of 16 bytes (and below 2^40), every
+    box dimension 1-256, the inner box 16 bytes, the box within the shared-memory plane the kernel
+    stages it into; the channels are the layer's input channels."""
+    build = piv_liteflownet if family == "piv" else hui_liteflownet
+    model = build(seed=0, version=version, device="cpu")
+    n_layers = 0
+    for (name, shapes), level in zip(_model_stacks(model), [lv for lv in model.cfg.levels for _ in range(3)]):
+        h = w = 1024 >> (level - 1)
+        for plan in cc.layer_plan(shapes, BF16):
+            if not plan.bn:
+                continue
+            n_layers += 1
+            tma = cc.tma_box(plan, 1, h, w)
+            assert tma.dims == (plan.cin, w, h, 1), (name, plan)
+            assert all(s % 16 == 0 and s < 2 ** 40 for s in tma.strides), (name, tma)
+            assert tma.strides[0] >= 2 * plan.cin and tma.strides[1] == w * tma.strides[0]
+            assert all(1 <= d <= 256 for d in tma.box) and tma.box[0] * 2 == 16, (name, tma)
+            assert tma.box[1] == cc.TC_COLS and tma.box[2] == cc.tile_rows(plan.bn) + plan.k - 1
+            plane = (tma.box[1] * tma.box[2] + 8) * 16  # the staged plane: the box and 8 spare pixels
+            assert 2 * cc.TC_STAGES[0] * plane < plan.smem
+    assert n_layers == len(model.cfg.levels) * (5 + 5 + 6 if version == 2 else 3 + 3 + 6)
 
 
 def test_smem_agrees_with_the_source():
     """The shared memory that ``layer_plan`` computes for each form is what the kernel's source
-    states for a 3x3 layer with BN 64."""
-    src = (CSRC / "conv_chain.cu").read_text()
+    states: the f32 form's for a 3x3 layer with BN 64, the bf16 form's for a 3x3 layer with BN 128."""
+    src = re.sub(r"\s*\n//\s*", " ", (CSRC / "conv_chain.cu").read_text())  # the comments' lines joined
     f32 = re.search(r"([\d,]+) bytes for a 3x3 layer with BN 64 \(one block", src)
-    bf16 = re.search(r"\(([\d,]+) bytes for a 3x3 layer with\s+// BN 64\)", src)
+    bf16 = re.search(r"([\d,]+) bytes of dynamic shared memory for a 3x3 layer with BN 128", src)
     assert f32 and bf16
     assert int(f32.group(1).replace(",", "")) == cc._smem(3, 64, 64) == 143040
-    assert int(bf16.group(1).replace(",", "")) == cc._smem(3, 64, 64, BF16) == 51072
+    assert int(bf16.group(1).replace(",", "")) == cc._smem(3, 128, 128, BF16) == 147200
+
+
+def _emulate_tensor_core_layer(x, wt, bias, act):
+    """One bf16 tensor-core conv as the kernel computes it, on the CPU: per tile (``tile_rows(bn)``
+    rows x ``tile_cols(k)`` columns) and channel tile, each 16-channel chunk staged as two 8-channel
+    planes in the TMA box's order (zeros off the map and past cin, NaN in the 8 spare pixels), the
+    packed weights staged per (chunk, ky); then, in the kernel's (chunk, ky, kx) order, every m64
+    block's A read through the no-swizzle descriptor's addressing (start 64 (row + ky) + kx pixels,
+    8-pixel core matrices 128 bytes apart, the second channel half a plane on) and B through
+    ``b_image_offset``, the products summed in float32; the bias and the LeakyReLU in float32 and
+    one rounding, the valid columns kept. ``x`` ``[B,cin,H,W]``, ``wt``, ``bias`` bf16."""
+    bsz, cin, h, w = x.shape
+    cout, _, k, _ = wt.shape
+    packed, (plan,) = cc._packed([wt], [bias])
+    bn, ck, cols = plan.bn, cc.MMA_CHUNK, cc.TC_COLS
+    th, tw, pad = cc.tile_rows(bn), cc.tile_cols(k), k // 2
+    tma = cc.tma_box(plan, bsz, h, w)
+    rows = tma.box[2]
+    plane = rows * cols * 8 + 8 * 8  # bf16 of a staged plane
+    nch = plan.cin_pad // ck
+    flat = packed.float()
+    # the descriptors' element offsets: A row i, channel kk from the block's start; B (n, kk)
+    i, kk = np.meshgrid(np.arange(64), np.arange(ck), indexing="ij")
+    a_off = torch.from_numpy((i // 8) * 64 + (kk // 8) * plane + (i % 8) * 8 + kk % 8)
+    n, kk = np.meshgrid(np.arange(bn), np.arange(ck), indexing="ij")
+    b_off = torch.from_numpy(np.vectorize(cc.b_image_offset)(n, kk))
+    nhwc = torch.zeros(bsz, h, w, tma.strides[0] // 2)
+    nhwc[..., :cin] = x.float().permute(0, 2, 3, 1)
+    out = torch.zeros(bsz, cout, h, w)
+    for b in range(bsz):
+        for y0 in range(0, h, th):
+            for x0 in range(0, w, tw):
+                for nb in range(plan.cout_pad // bn):
+                    acc = torch.zeros(th * cols, bn)
+                    for c in range(nch):
+                        stage = torch.full((2 * plane,), float("nan"))
+                        for half in range(2):  # the two TMA boxes of the chunk
+                            box = torch.zeros(rows, cols, 8)
+                            for r in range(rows):
+                                for q in range(cols):
+                                    gy, gx, c0 = y0 - pad + r, x0 - pad + q, c * ck + 8 * half
+                                    if 0 <= gy < h and 0 <= gx < w and c0 < cin:
+                                        box[r, q, :min(8, cin - c0)] = nhwc[b, gy, gx, c0:min(c0 + 8, cin)]
+                            stage[half * plane:half * plane + rows * cols * 8] = box.reshape(-1)
+                        for ky in range(k):
+                            wstage = plan.woff + ((nb * nch + c) * k + ky) * k * bn * ck
+                            for kx in range(k):
+                                bmat = flat[wstage + kx * bn * ck + b_off].T  # [16, bn]
+                                for m in range(th):  # the m64 blocks of both consumer warpgroups
+                                    amat = stage[((m + ky) * cols + kx) * 8 + a_off]
+                                    acc[m * cols:(m + 1) * cols] += amat @ bmat
+                    v = acc + torch.cat([bias.float(), torch.zeros(plan.cout_pad - cout)])[nb * bn:(nb + 1) * bn]
+                    v = (torch.where(v < 0, 0.1 * v, v) if act else v).to(BF16).float()
+                    v = v.view(th, cols, bn)[:min(th, h - y0), :min(tw, w - x0), :min(bn, cout - nb * bn)]
+                    out[b, nb * bn:nb * bn + v.shape[2], y0:y0 + v.shape[0], x0:x0 + v.shape[1]] = v.permute(2, 0, 1)
+    return out.to(BF16)
+
+
+@pytest.mark.parametrize("k,cout", [(1, 40), (3, 100), (5, 24), (7, 72)])
+def test_cpu_emulation_of_the_tensor_core_layer_matches_plain(k, cout):
+    """The kernel's addressing and order, emulated on the CPU at 23x37 with two parts of 13 and 7
+    channels (cin 20: a second chunk mostly past cin), against ``conv_chain_plain`` in bf16: within
+    one bf16 ulp plus 1e-5 * max|plain| elementwise, the card's tolerance (float32 sums of up to 980
+    products in another order, one rounding each; near zero, where the sums cancel, the order moves
+    a value by more than its own ulp: measured 3 of 61,272 values at k 7). The four cases
+    take the four channel tiles: BN 64 (one tile of 40), 128 (100), 32 (24), 96 (72 at k 7)."""
+    rng = np.random.default_rng(k)
+    parts = [torch.from_numpy(rng.standard_normal((1, c, 23, 37)).astype(np.float32)).to(BF16) for c in (13, 7)]
+    wt = torch.from_numpy((rng.standard_normal((cout, 20, k, k)) / (3 * k)).astype(np.float32)).to(BF16)
+    bias = torch.from_numpy(rng.standard_normal(cout).astype(np.float32) * 0.1).to(BF16)
+    plan = cc.layer_plan([(k, 20, cout)], BF16)[0]
+    assert plan.bn == {1: 64, 3: 128, 5: 32, 7: 96}[k]
+    got = _emulate_tensor_core_layer(torch.cat(parts, 1), wt, bias, act=True)
+    want = cc.conv_chain_plain(parts, [wt], [bias], last_linear=False)
+    assert not torch.isnan(got.float()).any()
+    err = (got.float() - want.float()).abs()
+    tol = _bf16_ulp(want.float()) + 1e-5 * float(want.float().abs().max())
+    assert bool((err <= tol).all()), f"{int((err > tol).sum())} values beyond one ulp"
 
 
 def test_mixed_dtypes_raise():

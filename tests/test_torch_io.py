@@ -105,6 +105,8 @@ def test_breakdown_groups_and_idle_share():
     from piv_liteflownet_tpu_torch.breakdown import busy_and_span, group_of, summarize
 
     assert group_of("void (anonymous namespace)::corr49_kernel(float const*)") == "corr49"
+    for form in ("f32", "bf16"):  # the chain's two kernels, not the cuDNN convs
+        assert group_of(f"(anonymous namespace)::conv_chain_{form}_kernel(...)") == "conv_chain"
     assert group_of("sm90_xmma_fprop_implicit_gemm_f32f32") == "conv"
     assert group_of("void at::native::vectorized_elementwise_kernel<4>") == "elementwise/reduce"
     assert group_of("Memcpy HtoD (Pageable -> Device)") == "memcpy/memset"
