@@ -3,7 +3,7 @@
 
 Run from the repository root, with no arguments:
 
-    python3 chip_smoke.py
+    python3 chip_smoke.py [--parent DIR]
 
 It drives PIV-LiteFlowNet-en version 1 inference and training, and
 PIV-LiteFlowNet2-en and Hui LiteFlowNet2 (version 2) inference and training,
@@ -46,13 +46,19 @@ the script exits non-zero without the final line.
    held to ``tile_plan`` and both paths required): each held to the
    float32 plain version on the bf16 inputs upcast to float32, then rounded
    to bf16, within one bf16 ulp of that reference plus the float32 kernel's
-   own tolerance, elementwise. Then, the same way through autograd, the bf16
-   forms of the two backward kernels: ``backwarp_bwd`` at the level-1 shape
-   of a 256^2 batch-8 training step at both strides with a smooth and a 30 px
-   random flow and at odd sizes (its out-of-window count held to
-   ``tile_windows``, both paths required), ``corr49_bwd`` at the training
-   step's level shapes and its edge shapes, widths a multiple of 4 but not of
-   8 among them (its edge count held to ``tile_plan``, both paths required).
+   own tolerance, elementwise; ``backwarp``'s bf16 form also at odd widths and
+   channel counts (5, 7, 33, 192), widths a multiple of 8 and a tensor 2 bytes
+   off 16, its count of tiles that gathered directly held to
+   ``ops/warp.py:staged_tiles`` and both of its paths required. Then, the
+   same way through autograd, the bf16 forms of the two backward kernels:
+   ``backwarp_bwd`` at the level-1 shape of a 256^2 batch-8 training step at
+   both strides with a smooth and a 30 px random flow, at odd sizes and
+   channel counts (5, 7, 33), and with a converging (zoom) and a spike flow
+   (its count of owner rectangles on the slower path held to
+   ``ops/warp.py:owner_rects``, both paths required, and a second launch
+   bit-equal to the first), ``corr49_bwd`` at the training step's level
+   shapes and its edge shapes, widths a multiple of 4 but not of 8 among
+   them (its edge count held to ``tile_plan``, both paths required).
    Then the bf16 form of ``conv_chain``: one conv of k = 1, 3, 5 and 7 on the
    tensor-core and the FFMA path, held as above (one bf16 ulp of the rounded
    float32 plain version, plus its 1e-5 * max|plain|), and every stack
@@ -100,7 +106,12 @@ the script exits non-zero without the final line.
    256^2 b4), and the peak memory of each; ``rgb_warp_norm`` and
    ``backwarp`` (as ``corr49``) also alone into a preallocated output
    (``launch_ms``); the bf16 forms through the op and alone, beside their
-   plain version in bf16 and their bound from the bf16 bytes.
+   plain version in bf16 and their bound from the bf16 bytes; ``backwarp``'s
+   bf16 form alone also with a random 8 px flow and at stride 2, beside its
+   float32 form alone and, with ``--parent DIR`` (another checkout's
+   ``piv_liteflownet_tpu_torch/csrc``, whose ``backwarp.cu`` and
+   ``backwarp_bwd.cu`` are built beside this tree's), the parent's bf16 form
+   in turns (tree, parent, parent, tree), with ``ptxas``'s lines.
 5. Training at 256^2 batch 8 on synthetic particle pairs: one train step
    through the kernels (the training path: the launch counts are set to 0
    just before it and read just after) and one through the plain ops from
@@ -128,8 +139,10 @@ the script exits non-zero without the final line.
    plain path's error plus 1e-3), the loss falling over the same steps as
    the float32 phase, ms/step (median, p90) and peak memory beside the
    float32 step's; and the two bf16 backward kernels alone beside their
-   float32 forms, their plain version in bf16 and their bf16 bound (for
-   ``backwarp_bwd`` also the bound of its float32-workspace design).
+   float32 forms, their plain version in bf16 and their bf16 bound;
+   ``backwarp_bwd``'s at stride 1 (smooth and random 8 px flow) and stride 2,
+   with ``ptxas``'s lines and, with ``--parent``, the parent's bf16 form (its
+   float32 workspace preallocated) in turns.
 
 The line before the last is ``{"kernels": [...]}`` (``launches``: per call of
 each kernel's own path, the piv v1 estimate for the forward kernels, the
@@ -139,7 +152,8 @@ the piv v1 bf16 chain estimate for ``conv_chain_bf16``, the piv v1 bf16
 train step for the backward ones; ``launches_per_train_step`` of the float32 piv v1 step and
 ``launches_by_path`` for all twelve C entry points); the last line is
 ``{"ok": true, "device": {...}}``. Without a CUDA device it exits 2 and
-prints no result.
+prints no result. It needs no argument; ``--parent DIR`` adds the parent's
+warp kernels to phases 4 and 5.
 """
 
 from __future__ import annotations
@@ -205,6 +219,29 @@ def smooth_flow(b: int, h: int, w: int, dev) -> torch.Tensor:
     u = 1.5 + 3.0 * torch.sin(2 * torch.pi * ys / 256) * torch.cos(2 * torch.pi * xs / 384)
     v = -0.5 + 2.0 * torch.cos(2 * torch.pi * xs / 300)
     return torch.stack([u.expand(h, w), v.expand(h, w)])[None].repeat(b, 1, 1, 1).contiguous()
+
+
+def make_flow(kind, b: int, ho: int, wo: int, stride: int, h: int, w: int, seed: int, dev) -> torch.Tensor:
+    """A flow ``[b,2,ho,wo]`` of a kind: "smooth" (``smooth_flow``), "zoom" (converging: the frame
+    sampled on 0.3 of it, rectangles of the bf16 backward past their candidate cap), "spike" (zero
+    but for a 6x6 patch whose pixels all sample one point, an element past its tap cap), or a
+    number: uniform random up to that many pixels."""
+    if kind == "smooth":
+        return smooth_flow(b, ho, wo, dev)
+    ys = stride * torch.arange(ho, device=dev, dtype=torch.float32)[:, None]
+    xs = stride * torch.arange(wo, device=dev, dtype=torch.float32)[None, :]
+    if kind == "zoom":
+        return torch.stack([(-0.7 * (xs - w / 2)).expand(ho, wo), (-0.7 * (ys - h / 2)).expand(ho, wo)])[None].repeat(b, 1, 1, 1)
+    if kind == "spike":
+        flow = torch.zeros((b, 2, ho, wo), device=dev)
+        flow[:, 0, 10:16, 10:16] = 20.3 - xs[:, 10:16]
+        flow[:, 1, 10:16, 10:16] = 12.3 - ys[10:16]
+        return flow
+    return uniform((b, 2, ho, wo), seed, dev, -kind, kind)
+
+
+def flow_name(kind) -> str:
+    return f"{kind} flow" if isinstance(kind, str) else f"|flow|<={kind:g}"
 
 
 # -- phase 2: kernels against their plain versions -------------------------------------
@@ -443,8 +480,12 @@ def check_bf16_kernels(dev, ops):
     # launch, a bf16 edge one), maps smaller than the window, a tensor 2 bytes off 16
     corr_cases += [(2, 3, 37, 53, True), (1, 192, 8, 8, True), (2, 5, 2, 3, True), (1, 1, 1, 1, True),
                    (1, 4, 3, 12, True), (1, 64, 64, 36, True), (1, 8, 16, 32, False)]
+    # the staged path's edges: odd widths and channel counts, widths a multiple of 8, a tensor 2 bytes
+    # off 16 (every tile direct), steep flows (tiles too wide to stage)
     warp_cases += [(1, 64, MAIN_H, MAIN_W, 1, 30.0), (1, 64, MAIN_H, MAIN_W, 2, 30.0),
-                   (2, 5, 37, 53, 1, 30.0), (2, 7, 37, 53, 2, 30.0)]
+                   (2, 5, 37, 53, 1, 30.0), (2, 7, 37, 53, 2, 30.0), (2, 33, 41, 67, 1, 4.0),
+                   (2, 33, 40, 64, 1, 3.0), (2, 7, 40, 64, 2, 3.0), (2, 5, 40, 64, 1, "off"),
+                   (1, 192, 32, 32, 1, 2.0)]
     rgb_cases += [(2, 37, 53, 30.0), (4, 256, 256, 8.0)]
     edge_counter = corr.edge_tile_counter(dev)
     tiles = {"vector": 0, "edge": 0}
@@ -474,16 +515,34 @@ def check_bf16_kernels(dev, ops):
         f"ops/correlation.py:tile_plan)")
     if not all(tiles.values()):
         failures.append(f"corr49_bf16: a path of the kernel never ran: {tiles}")
+    direct_counter = warp.direct_tile_counter(dev)
+    warp_tiles = {"staged": 0, "direct": 0}
     for b, c, h, w, s, mag in warp_cases:
         seed += 1
-        img = randn((b, c, h, w), seed, dev).to(bf)
+        off = mag == "off"  # the map 2 bytes off 16, 3 px flow
+        if off:
+            img = randn((b * c * h * w + 1,), seed, dev).to(bf)[1:].view(b, c, h, w)
+        else:
+            img = randn((b, c, h, w), seed, dev).to(bf)
         ho, wo = warp.out_hw(h, w, s)
-        flow = uniform((b, 2, ho, wo), seed + 1000, dev, -mag, mag).to(bf)
+        flow = uniform((b, 2, ho, wo), seed + 1000, dev, -3.0 if off else -mag, 3.0 if off else mag).to(bf)
+        direct_counter.zero_()
         got = warp.backwarp(img, flow, s)
         torch.cuda.synchronize()
-        hold("backwarp_bf16", f"[{b},{c},{h},{w}] stride {s} |flow|<={mag:g}", got,
-             warp.backwarp_plain(img.float(), flow.float(), s), WARP_ATOL)
+        rule = warp.staged_tiles(flow.float(), h, w, s, aligned=not off)
+        n_direct = int(direct_counter.item())
+        warp_tiles["direct"] += n_direct
+        warp_tiles["staged"] += rule.numel() - n_direct
+        if n_direct != int(rule.sum()):
+            failures.append(f"backwarp_bf16 [{b},{c},{h},{w}] stride {s}: {n_direct} tiles gathered directly, the "
+                            f"tile rule says {int(rule.sum())}")
+        hold("backwarp_bf16", f"[{b},{c},{h},{w}] stride {s} " + ("2 bytes off, |flow|<=3" if off else f"|flow|<={mag:g}")
+             + f", {n_direct}/{rule.numel()} direct", got, warp.backwarp_plain(img.float(), flow.float(), s), WARP_ATOL)
         del img, flow, got
+    log(f"  backwarp_bf16 tiles over these cases: {warp_tiles} (each direct count equal to "
+        f"ops/warp.py:staged_tiles)")
+    if not all(warp_tiles.values()):
+        failures.append(f"backwarp_bf16: a path of the kernel never ran: {warp_tiles}")
     for b, h, w, mag in rgb_cases:
         seed += 1
         img1 = uniform((b, 3, h, w), seed, dev, 0, 1).to(bf)
@@ -545,45 +604,54 @@ def check_bf16_chain(dev, chain, hold, errs, failures, seed):
 def check_bf16_backward(dev, ops, hold, failures, seed):
     """The bf16 forms of the two backward kernels through autograd, against the float32 plain
     backward on the bf16 inputs upcast (``hold``): ``backwarp_bwd_bf16`` at the level-1 shape of a
-    256^2 batch-8 training step at both strides with a smooth and a 30 px random flow and at odd
-    sizes, its out-of-window count held to ``tile_windows`` and both paths required;
+    256^2 batch-8 training step at both strides with a smooth and a 30 px random flow, at smaller
+    level shapes, at odd sizes and channel counts (5, 7, 33), and with a converging (zoom) and a
+    spike flow at both strides, its count of owner rectangles on the slower path held to
+    ``owner_rects`` and both paths required, and a second launch bit-equal to the first;
     ``corr49_bwd_bf16`` at the training step's level shapes and at edge shapes (odd widths,
     widths a multiple of 4 but not of 8, maps smaller than the window, a tensor 2 bytes off 16),
     its edge count held to ``tile_plan`` and both paths required."""
     corr, warp, _, _ = ops
     bf = torch.bfloat16
-    counter = warp.out_of_window_counter(dev)
-    tiles = {"window": 0, "out of window": 0}
+    counter = warp.slow_rect_counter(dev)
+    rects = {"fast": 0, "slow": 0}
     warp_cases = [(TRAIN_B, 64, TRAIN_H, TRAIN_W, s, kind) for s in (1, 2) for kind in ("smooth", 30.0)]
     warp_cases += [(TRAIN_B, 64, TRAIN_H // 2, TRAIN_W // 2, 2, 8.0), (TRAIN_B, 96, TRAIN_H // 8, TRAIN_W // 8, 1, 8.0),
-                   (2, 5, 37, 53, 1, 30.0), (2, 7, 37, 53, 2, 30.0)]
-    for b, c, h, w, s, mag in warp_cases:
+                   (2, 5, 37, 53, 1, 30.0), (2, 7, 37, 53, 2, 30.0), (2, 33, 41, 67, 1, 8.0),
+                   (2, 33, 41, 67, 2, "smooth"), (2, 5, 40, 70, 1, "zoom"), (1, 7, 64, 96, 2, "zoom"),
+                   (2, 33, 40, 70, 1, "spike"), (1, 7, 40, 70, 2, "spike")]
+    for b, c, h, w, s, kind in warp_cases:
         seed += 1
         img = randn((b, c, h, w), seed, dev).to(bf).requires_grad_()
         ho, wo = warp.out_hw(h, w, s)
-        flow = (smooth_flow(b, ho, wo, dev) if mag == "smooth"
-                else uniform((b, 2, ho, wo), seed + 1000, dev, -mag, mag)).to(bf).requires_grad_()
+        flow = make_flow(kind, b, ho, wo, s, h, w, seed + 1000, dev).to(bf).requires_grad_()
         gout = randn((b, c, ho, wo), seed + 2000, dev).to(bf)
         counter.zero_()
         warp.backwarp(img, flow, s).backward(gout)
         torch.cuda.synchronize()
-        rule = warp.tile_windows(flow.detach().float(), h, w, s)
-        n_out, n_rule = int(counter.item()), int((~rule.fits).sum())
-        tiles["out of window"] += n_out
-        tiles["window"] += rule.fits.numel() - n_out
-        if n_out != n_rule:
-            failures.append(f"backwarp_bwd_bf16 [{b},{c},{h},{w}] stride {s}: {n_out} tiles out of the "
-                            f"window, the tile rule says {n_rule}")
+        n_slow = int(counter.item())
+        rule = warp.owner_rects(flow.detach().float(), h, w, s)
+        rects["slow"] += n_slow
+        rects["fast"] += rule.slow.numel() - n_slow
+        if n_slow != int(rule.slow.sum()):
+            failures.append(f"backwarp_bwd_bf16 [{b},{c},{h},{w}] stride {s}: {n_slow} rectangles on the slower "
+                            f"path, the owner rule says {int(rule.slow.sum())}")
+        g_img, g_flow = torch.empty_like(img), torch.empty_like(flow)  # a second launch: bit-equal
+        warp._launch_bwd(img.detach(), flow.detach(), gout, s, g_img, g_flow)
+        torch.cuda.synchronize()
+        if not (torch.equal(g_img.view(torch.int16), img.grad.view(torch.int16))
+                and torch.equal(g_flow.view(torch.int16), flow.grad.view(torch.int16))):
+            failures.append(f"backwarp_bwd_bf16 [{b},{c},{h},{w}] stride {s} {flow_name(kind)}: two launches differ")
         want_img, want_flow = warp.backwarp_bwd_plain(img.detach().float(), flow.detach().float(), gout.float(), s)
         tol = BWD_RTOL * max(float(want_img.abs().max()), float(want_flow.abs().max()), 1.0)
-        what = (f"[{b},{c},{h},{w}] stride {s} " + ("smooth flow" if mag == "smooth" else f"|flow|<={mag:g}")
-                + f", {n_out}/{rule.fits.numel()} out")
+        what = f"[{b},{c},{h},{w}] stride {s} {flow_name(kind)}, {n_slow}/{rule.slow.numel()} slow"
         hold("backwarp_bwd_bf16", "g_img " + what, img.grad, want_img, tol)
         hold("backwarp_bwd_bf16", "g_flow " + what, flow.grad, want_flow, tol)
-        del img, flow, gout, want_img, want_flow, rule
-    log(f"  backwarp_bwd_bf16 tiles over these cases: {tiles} (each count equal to ops/warp.py:tile_windows)")
-    if not all(tiles.values()):
-        failures.append(f"backwarp_bwd_bf16: a path of the kernel never ran: {tiles}")
+        del img, flow, gout, want_img, want_flow, rule, g_img, g_flow
+    log(f"  backwarp_bwd_bf16 owner rectangles over these cases: {rects} (each slow count equal to "
+        f"ops/warp.py:owner_rects; every case's second launch bit-equal to its first)")
+    if not all(rects.values()):
+        failures.append(f"backwarp_bwd_bf16: a path of the kernel never ran: {rects}")
     edge_counter = corr.edge_tile_counter(dev)
     corr_tiles = {"vector": 0, "edge": 0}
     corr_cases = []
@@ -900,6 +968,21 @@ class Timer:
         return float(np.median(samples))
 
 
+def in_turns(timer, fns: dict) -> dict:
+    """Each of ``fns`` timed by ``timer`` twice, in turns: in the order given, then reversed
+    (name -> [ms, ms])."""
+    times = {name: [] for name in fns}
+    for order in (list(fns), list(fns)[::-1]):
+        for name in order:
+            times[name].append(timer(fns[name]))
+    return times
+
+
+def parent_call(parent, name: str, dev, *args):
+    """A call of the parent tree's C entry point ``name`` (see ``warp_library``)."""
+    return lambda: call_entry(parent, name, dev, *args)
+
+
 def pixel_grid(flow: torch.Tensor, h: int, w: int, stride: int = 1) -> torch.Tensor:
     """grid_sample grid (align_corners=True) on an h x w map that samples at (s*x + u, s*y + v)."""
     xs = stride * torch.arange(flow.shape[3], device=flow.device, dtype=torch.float32) + flow[:, 0]
@@ -959,6 +1042,43 @@ def ptxas_lines(build_log: str, source: str) -> list:
         elif keep and any(k in line for k in ("entry function", "registers", "spill")):
             lines.append(line.strip())
     return lines
+
+
+def warp_library(csrc: Path, out: Path, sources=("backwarp.cu", "backwarp_bwd.cu"), signatures=None):
+    """``sources`` of ``csrc`` (another tree's ``piv_liteflownet_tpu_torch/csrc``, or a variant
+    of this one's) built with ``kernels/build.py``'s flags, all at once, into ``out/libwarp.so``,
+    its entry points bound with ``build.SIGNATURES`` updated by ``signatures``: (library, ptxas
+    lines by source)."""
+    from piv_liteflownet_tpu_torch.kernels import build
+
+    out.mkdir(parents=True, exist_ok=True)
+    nvcc = build.find_nvcc()
+    procs = [(src, subprocess.Popen([nvcc, *build.NVCC_FLAGS, "-I", str(csrc), "-c", str(csrc / src), "-o",
+                                     str(out / (src + ".o"))], stdout=subprocess.PIPE,
+                                    stderr=subprocess.STDOUT, text=True)) for src in sources]
+    logs = []
+    for src, proc in procs:
+        text, _ = proc.communicate()
+        if proc.returncode != 0:
+            raise RuntimeError(f"nvcc failed on {csrc / src}:\n{text}")
+        logs.append(f"== {src}\n{text}")
+    lib_path = out / "libwarp.so"
+    subprocess.run([nvcc, *build.ARCH_FLAGS, "-shared", *(str(out / (src + ".o")) for src in sources), "-o",
+                    str(lib_path)], check=True, capture_output=True, text=True)
+    lib = ctypes.CDLL(str(lib_path))
+    for name, argtypes in dict(build.SIGNATURES, **(signatures or {})).items():
+        if hasattr(lib, name):
+            fn = getattr(lib, name)
+            fn.argtypes, fn.restype = argtypes, ctypes.c_int
+    log_text = "\n".join(logs)
+    return lib, {src: ptxas_lines(log_text, src) for src in sources}
+
+
+def call_entry(lib, name: str, dev, *args) -> None:
+    """One call of ``lib``'s C entry point ``name`` on ``dev``'s current stream; raise on an error."""
+    rc = getattr(lib, name)(*args, dev.index or 0, torch.cuda.current_stream(dev).cuda_stream)
+    if rc != 0:
+        raise RuntimeError(f"{name}: CUDA error {rc}")
 
 
 def repack_alone(chain, parts, scratch) -> None:
@@ -1021,7 +1141,7 @@ def chain_layer_split(dev, chain, timer, card, tag: str = "") -> list:
     return rows
 
 
-def time_all(dev, ops, models, bf16_models, card, build_log):
+def time_all(dev, ops, models, bf16_models, card, build_log, parent=None):
     from piv_liteflownet_tpu_torch.inference import estimate
     from piv_liteflownet_tpu_torch.utils.synthetic import particle_pair
 
@@ -1132,7 +1252,7 @@ def time_all(dev, ops, models, bf16_models, card, build_log):
         shape=f"[{b},3,{h},{w}]",
         bound=bound_ms(4 * (3 + 3 + 2 + 1) * b * h * w, 27 * b * h * w))
     del img, img1, img2, flow, grid, flow_r, grid_r, flow2, out, norm
-    rows.update(time_bf16_kernels(dev, ops, timer, card))
+    rows.update(time_bf16_kernels(dev, ops, timer, card, rows, build_log, parent))
     # conv_chain at the piv v1 level-1 M, S and R stacks of a 1024^2 pair (the S stack is the
     # row) and the 6-conv v2 M and S stacks at level 2, each beside the cuDNN chain (its plain
     # version); the bound at the 3xTF32 rate (three TF32 products per multiply-add) and at the
@@ -1193,12 +1313,15 @@ def time_all(dev, ops, models, bf16_models, card, build_log):
     return rows
 
 
-def time_bf16_kernels(dev, ops, timer, card):
+def time_bf16_kernels(dev, ops, timer, card, f32_rows, build_log, parent=None):
     """The bf16 forms at their level-1 shapes of a 1024^2 pair: through the op (``ms``), alone
     into a preallocated output (``launch_ms``), the plain version in bf16, and the bound from the
     bf16 bytes. No single PyTorch call computes their function: ``F.grid_sample`` on a bf16 map
     takes a bf16 grid, whose normalised coordinates are coarser than a pixel at this size (its
-    time is printed, as a call of another function)."""
+    time is printed, as a call of another function). ``backwarp_bf16`` also alone with a random
+    8 px flow and at stride 2, beside the float32 form alone on the same values, with ``ptxas``'s
+    lines for its source, and, given ``parent`` (another tree's warp kernels, ``warp_library``),
+    beside the parent's bf16 form alone, in turns."""
     corr, warp, rgb, _ = ops
     bf = torch.bfloat16
     rows = {}
@@ -1211,17 +1334,42 @@ def time_bf16_kernels(dev, ops, timer, card):
         library_ms=None, bound=bound_ms(2 * (2 * c + 49) * b * h * w, 2 * 49 * c * b * h * w))
     del f1, f2, out
     b, c, h, w = 1, 64, MAIN_H, MAIN_W
-    img, flow = randn((b, c, h, w), 3, dev).to(bf), smooth_flow(b, h, w, dev).to(bf)
-    out = torch.empty_like(img)
-    rows["backwarp_bf16"] = dict(
-        shape=f"[{b},{c},{h},{w}] stride 1", ms=timer(lambda: warp.backwarp(img, flow)),
-        launch_ms=timer(lambda: warp._launch(img, flow, 1, out)),
-        plain_ms=timer(lambda: warp.backwarp_plain(img, flow)), library_ms=None,
-        bound=bound_ms(2 * (2 * c + 2) * b * h * w, 8 * c * b * h * w))
+    img32 = randn((b, c, h, w), 3, dev)
+    img = img32.to(bf)
+    cases = []
+    for s, kind in ((1, "smooth"), (1, 8.0), (2, "smooth")):
+        ho, wo = warp.out_hw(h, w, s)
+        flow32 = make_flow(kind, b, ho, wo, s, h, w, 4, dev)
+        flow = flow32.to(bf)
+        out, out32 = torch.empty((b, c, ho, wo), device=dev, dtype=bf), torch.empty((b, c, ho, wo), device=dev)
+        fns = {"tree": lambda: warp._launch(img, flow, s, out)}
+        if parent is not None:
+            fns["parent"] = parent_call(parent, "pivk_backwarp_bf16", dev, img.data_ptr(), flow.data_ptr(),
+                                        out.data_ptr(), b, c, h, w, ho, wo, s)
+        turns = in_turns(timer, fns)
+        case = dict(shape=f"[{b},{c},{h},{w}] stride {s}", flow=flow_name(kind), launch_ms=float(np.median(turns["tree"])),
+                    f32_launch_ms=timer(lambda: warp._launch(img32, flow32, s, out32)),
+                    parent_launch_ms=turns.get("parent"), turns_ms=turns["tree"],
+                    bound=bound_ms(2 * (c * h * w + (c + 2) * ho * wo) * b, 8 * c * b * ho * wo))
+        parent_txt = (f", parent's bf16 form {turns['parent'][0]:.4f} / {turns['parent'][1]:.4f} against "
+                      f"{turns['tree'][0]:.4f} / {turns['tree'][1]:.4f} in turns" if parent is not None else "")
+        log(f"  backwarp_bf16 {case['shape']} {case['flow']}: {case['launch_ms']:.4f} ms alone, float32 form alone "
+            f"{case['f32_launch_ms']:.4f}{parent_txt}; bound {case['bound'][0]:.4f} ms ({case['bound'][1]}, "
+            f"{case['bound'][0] / case['launch_ms']:.1%} of it)  ({card})")
+        if s == 1 and kind == "smooth":
+            rows["backwarp_bf16"] = dict(
+                shape=case["shape"], ms=timer(lambda: warp.backwarp(img, flow)), launch_ms=case["launch_ms"],
+                plain_ms=timer(lambda: warp.backwarp_plain(img, flow)), library_ms=None, bound=case["bound"],
+                f32_ms=f32_rows["backwarp"]["launch_ms"], parent_launch_ms=case["parent_launch_ms"],
+                ptxas=ptxas_lines(build_log, "backwarp.cu"))
+        cases.append({k: (v[0] if k == "bound" else v) for k, v in case.items()})
+        del flow, flow32, out, out32
+    rows["backwarp_bf16"]["cases"] = cases
+    flow = smooth_flow(b, h, w, dev).to(bf)
     grid = pixel_grid(flow.float(), h, w).to(bf)
     gs = timer(lambda: F.grid_sample(img, grid, mode="bilinear", padding_mode="zeros", align_corners=True))
     log(f"  (F.grid_sample on the bf16 map with a bf16 grid, another function: {gs:.4f} ms  ({card}))")
-    del img, flow, out, grid
+    del img, img32, flow, grid
     b, h, w = 1, MAIN_H, MAIN_W
     img1, img2 = uniform((b, 3, h, w), 6, dev, 0, 1).to(bf), uniform((b, 3, h, w), 7, dev, 0, 1).to(bf)
     flow = smooth_flow(b, h, w, dev).to(bf)
@@ -1520,59 +1668,58 @@ def run_training_bf16(dev, ops, card, version, f32):
     return {"launches": counts, "ms_step": med, "p90": p90, "peak": peak, "relation": relation}
 
 
-def time_bf16_backward(dev, ops, timer, card, f32_rows):
+def time_bf16_backward(dev, ops, timer, card, f32_rows, build_log, parent=None):
     """The bf16 forms of the backward kernels alone (the wrapper's ``_launch_bwd``, as the float32
     rows) at their level-1 shapes of a 256^2 batch-8 training step, beside the float32 form's time
-    in this call, the plain version in bf16, and two bounds: the function's bf16 bytes, and for
-    ``backwarp_bwd_bf16`` those of its workspace design (the f32 workspace written and read once
-    besides the bf16 inputs and outputs). No single PyTorch call computes their function in bf16:
-    ``grid_sampler_2d_backward`` on a bf16 map takes a bf16 grid, whose normalised coordinates
-    are coarser than a pixel at 256."""
+    in this call, the plain version in bf16, and the bound from the function's bf16 bytes; for
+    ``backwarp_bwd_bf16`` at stride 1 with a smooth and a random 8 px flow and at stride 2, with
+    ``ptxas``'s lines for its source and, given ``parent`` (another tree's warp kernels,
+    ``warp_library``), beside the parent's bf16 form alone (its float32 workspace preallocated),
+    in turns. No single PyTorch call computes their function in bf16: ``grid_sampler_2d_backward``
+    on a bf16 map takes a bf16 grid, whose normalised coordinates are coarser than a pixel at 256."""
     corr, warp, _, _ = ops
     bf = torch.bfloat16
     rows = {}
     b, c, h, w = TRAIN_B, 64, TRAIN_H, TRAIN_W
     img = randn((b, c, h, w), 31, dev).to(bf)
     g_img = torch.empty_like(img)
+    workspace = torch.empty(img.shape, device=dev) if parent is not None else None
+    parent_counter = torch.zeros(1, dtype=torch.int32, device=dev)
     cases = []
     for s, kind in ((1, "smooth"), (1, 8.0), (2, "smooth")):
         ho, wo = warp.out_hw(h, w, s)
-        flow = (smooth_flow(b, ho, wo, dev) if kind == "smooth"
-                else uniform((b, 2, ho, wo), 33, dev, -kind, kind)).to(bf)
+        flow = make_flow(kind, b, ho, wo, s, h, w, 33, dev).to(bf)
         gout = randn((b, c, ho, wo), 32 + s, dev).to(bf)
         g_flow = torch.empty_like(flow)
         n_in, n_out, n_flow = b * c * h * w, b * c * ho * wo, b * 2 * ho * wo
         nbytes = 2 * (2 * n_in + n_out + 2 * n_flow)          # img, g_img, gout, flow, g_flow in bf16
-        nbytes_ws = nbytes + 4 * n_in + 4 * n_in              # + the f32 workspace written and read once
-        case = dict(shape=f"[{b},{c},{h},{w}] stride {s}",
-                    flow="smooth" if kind == "smooth" else f"random |flow|<={kind:g}",
-                    ms=timer(lambda: warp._launch_bwd(img, flow, gout, s, g_img, g_flow)),
-                    bound=bound_ms(nbytes, 24 * n_out), bound_workspace_ms=bound_ms(nbytes_ws, 24 * n_out)[0])
+        fns = {"tree": lambda: warp._launch_bwd(img, flow, gout, s, g_img, g_flow)}
+        if parent is not None:
+            fns["parent"] = parent_call(parent, "pivk_backwarp_bwd_bf16", dev, img.data_ptr(), flow.data_ptr(),
+                                        gout.data_ptr(), g_img.data_ptr(), g_flow.data_ptr(),
+                                        parent_counter.data_ptr(), workspace.data_ptr(), b, c, h, w, ho, wo, s)
+        turns = in_turns(timer, fns)
+        case = dict(shape=f"[{b},{c},{h},{w}] stride {s}", flow=flow_name(kind), ms=float(np.median(turns["tree"])),
+                    turns_ms=turns["tree"], parent_ms=turns.get("parent"), bound=bound_ms(nbytes, 24 * n_out))
         f32_case = next(x for x in f32_rows["backwarp_bwd"]["cases"] if x["shape"] == case["shape"]
                         and x["flow"] == case["flow"])
         case["f32_ms"] = f32_case["ms"]
         if s == 1 and kind == "smooth":
             case["plain_ms"] = timer(lambda: warp.backwarp_bwd_plain(img, flow, gout, s))
-            # the workspace's two passes besides the kernel, by PyTorch calls that move the same
-            # bytes: the memset (zero_), and an f32 -> bf16 pass like the rounding kernel (copy_)
-            ws = torch.empty(img.shape, device=dev, dtype=torch.float32)
-            memset_ms, round_ms = timer(lambda: ws.zero_()), timer(lambda: g_img.copy_(ws))
-            del ws
             rows["backwarp_bwd_bf16"] = dict(ms=case["ms"], plain_ms=case["plain_ms"], library_ms=None,
-                                             shape=case["shape"], bound=case["bound"],
-                                             bound_workspace_ms=case["bound_workspace_ms"], f32_ms=case["f32_ms"],
-                                             workspace_memset_ms=memset_ms, round_pass_proxy_ms=round_ms)
-            log(f"  backwarp_bwd_bf16 workspace [{b},{c},{h},{w}] f32: memset (zero_) {memset_ms:.4f} ms, an f32 -> "
-                f"bf16 pass over it (copy_, as the rounding kernel) {round_ms:.4f} ms  ({card})")
+                                             shape=case["shape"], bound=case["bound"], f32_ms=case["f32_ms"],
+                                             parent_ms=case["parent_ms"],
+                                             ptxas=ptxas_lines(build_log, "backwarp_bwd.cu"))
         cases.append(case)
+        parent_txt = (f", the parent's bf16 form {turns['parent'][0]:.4f} / {turns['parent'][1]:.4f} against "
+                      f"{turns['tree'][0]:.4f} / {turns['tree'][1]:.4f} in turns" if parent is not None else "")
         log(f"  backwarp_bwd_bf16 {case['shape']}, {case['flow']}: {case['ms']:.4f} ms alone, float32 form "
-            f"{case['f32_ms']:.4f} ms (bf16/f32 {case['ms'] / case['f32_ms']:.3f}); bound {case['bound'][0]:.4f} ms "
-            f"({case['bound'][1]}, {case['bound'][0] / case['ms']:.1%} of it), the workspace design's "
-            f"{case['bound_workspace_ms']:.4f} ms  ({card})")
+            f"{case['f32_ms']:.4f} ms (bf16/f32 {case['ms'] / case['f32_ms']:.3f}){parent_txt}; bound "
+            f"{case['bound'][0]:.4f} ms ({case['bound'][1]}, {case['bound'][0] / case['ms']:.1%} of it)  ({card})")
         del flow, gout, g_flow
     rows["backwarp_bwd_bf16"]["cases"] = [
         {k: (v[0] if k == "bound" else v) for k, v in case.items()} for case in cases]
-    del img, g_img
+    del img, g_img, workspace
     b, c, h, w = TRAIN_B, 64, TRAIN_H // 2, TRAIN_W // 2
     f1, f2 = randn((b, c, h, w), 35, dev).to(bf), randn((b, c, h, w), 36, dev).to(bf)
     g = randn((b, 49, h, w), 37, dev).to(bf)
@@ -1617,7 +1764,7 @@ def time_backward(dev, ops, card):
         # each input read once, each output written once
         nbytes = 4 * (2 * b * c * h * w + b * c * ho * wo + 2 * 2 * b * ho * wo)
         case = dict(
-            shape=f"[{b},{c},{h},{w}] stride {s}", flow="smooth" if kind == "smooth" else f"random |flow|<={kind:g}",
+            shape=f"[{b},{c},{h},{w}] stride {s}", flow=flow_name(kind),
             ms=timer(lambda: warp._launch_bwd(img, flow, gout, s, g_img, g_flow)),
             library_ms=timer(lambda: torch.ops.aten.grid_sampler_2d_backward(
                 gout, img, grid, 0, 0, True, [True, True])),
@@ -1674,7 +1821,19 @@ def corr_channel_scan(dev, corr, timer, card):
     return fits
 
 
-def main() -> int:
+#: The parent tree's warp entry points whose C signatures differ from this tree's (its bf16
+#: backwarp takes no counter).
+PARENT_SIGNATURES = {"pivk_backwarp_bf16": ("pivk_backwarp_f32",)}
+
+
+def main(argv=None) -> int:
+    import argparse
+
+    parser = argparse.ArgumentParser(description="Smoke run of the PyTorch port on one CUDA card.")
+    parser.add_argument("--parent", type=Path, default=None,
+                        help="another checkout's piv_liteflownet_tpu_torch/csrc: its warp kernels' bf16 forms "
+                             "are built and timed in turns beside this tree's (phases 4 and 5)")
+    args = parser.parse_args(argv)
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device is available", file=sys.stderr, flush=True)
         return 2
@@ -1698,6 +1857,15 @@ def main() -> int:
         if any(key in line for key in ("entry function", "registers", "spill")) or line.startswith("=="):
             log(f"    {line.strip()}")
     build.load()
+    parent = None
+    if args.parent is not None:
+        t_parent = time.perf_counter()
+        parent, parent_ptxas = warp_library(args.parent.resolve(), build.BUILD_DIR.parent / "parent_warps", signatures={
+            name: build.SIGNATURES[like] for name, (like,) in PARENT_SIGNATURES.items()})
+        log(f"  the parent's warp kernels from {args.parent}: built in {time.perf_counter() - t_parent:.2f} s")
+        for src, lines in parent_ptxas.items():
+            for line in lines:
+                log(f"    parent {src}: {line}")
 
     ops = (correlation, warp, rgb_warp, conv_chain)
     log("phase 2: kernels against their plain versions")
@@ -1712,7 +1880,7 @@ def main() -> int:
     log(f"  ({time.perf_counter() - t_start:.1f} s)")
 
     log("phase 4: times")
-    rows = time_all(dev, ops, sl.pop("models"), sl_bf16.pop("models"), card, res.log)
+    rows = time_all(dev, ops, sl.pop("models"), sl_bf16.pop("models"), card, res.log, parent)
     log(f"  ({time.perf_counter() - t_start:.1f} s)")
 
     log("phase 5: training")
@@ -1723,7 +1891,7 @@ def main() -> int:
     run_training_bf16(dev, ops, card, 2, tr2)
     del tr["plain_grads"], tr2["plain_grads"]
     rows.update(time_backward(dev, ops, card))
-    rows.update(time_bf16_backward(dev, ops, Timer(dev), card, rows))
+    rows.update(time_bf16_backward(dev, ops, Timer(dev), card, rows, res.log, parent))
 
     sources = {"corr49": "corr49.cu", "backwarp": "backwarp.cu", "rgb_warp_norm": "rgb_warp_norm.cu",
                "conv_chain": "conv_chain.cu", "backwarp_bwd": "backwarp_bwd.cu",
@@ -1765,9 +1933,9 @@ def main() -> int:
         launches_by_path={p: counts.get(name, 0) for p, counts in paths.items()},
         max_abs_err=errs[name], ms=r["ms"], plain_ms=r["plain_ms"], bound_ms=r["bound"][0],
         bound_by=r["bound"][1], library_ms=r["library_ms"],
-        **{k: r[k] for k in ("launch_ms", "bound_f32_ms", "bound_workspace_ms", "f32_ms", "workspace_memset_ms",
-                             "round_pass_proxy_ms", "cudnn_ms", "repack_proxy_ms", "repack_bound_ms", "ptxas",
-                             "cases", "channel_scan", "layer_split") if k in r})
+        **{k: r[k] for k in ("launch_ms", "bound_f32_ms", "f32_ms", "parent_ms", "parent_launch_ms", "cudnn_ms",
+                             "repack_proxy_ms", "repack_bound_ms", "ptxas", "cases", "channel_scan",
+                             "layer_split") if k in r})
         for name, r in rows.items()]
     if len(kernels) != len(sources) or any(k["launches"] == 0 for k in kernels):
         raise AssertionError(f"a kernel never launched on its path: {paths}")

@@ -30,10 +30,11 @@ import torch
 GROUPS = (
     ("conv_chain", ("conv_chain_f32_kernel", "conv_chain_bf16_kernel")),
     ("corr49", ("corr49_kernel",)),
-    ("backwarp", ("backwarp_kernel",)),
+    ("backwarp", ("backwarp_kernel", "backwarp_staged_kernel")),  # the float32 form, the bf16 form
     ("rgb_warp_norm", ("rgb_warp_norm_kernel",)),
     ("corr49_bwd", ("corr49_bwd_kernel",)),
-    ("backwarp_bwd", ("backwarp_bwd_kernel", "round_to_bf16_kernel")),
+    # the float32 form; the bf16 form's main kernel and its pre-pass over the flow
+    ("backwarp_bwd", ("backwarp_bwd_kernel", "backwarp_bwd_owner_kernel", "owner_boxes_kernel")),
     ("conv", ("conv", "gemm", "xmma", "cutlass", "cudnn", "implicit", "winograd", "fft", "sm90_",
               "wgrad", "dgrad")),
     ("optimizer", ("multi_tensor", "adam")),

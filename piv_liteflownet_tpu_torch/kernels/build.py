@@ -44,11 +44,13 @@ SIGNATURES = {
     "pivk_corr49_bwd_f32": (_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P),
     "pivk_conv_chain_f32": (_P, _P, _I, _P, _I, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P),
 }
-#: The bfloat16 forms take the arguments of their float32 forms; the backwarp gradient's also
-#: takes, after its counter, a float32 workspace of the image's shape.
+#: The bfloat16 forms take the arguments of their float32 forms; the backwarp's also takes,
+#: after its output, a counter of tiles that gathered directly, and the backwarp gradient's,
+#: after its counter (of slow-path rectangles there), the int32 boxes of its owner rectangles.
 SIGNATURES.update({name.replace("_f32", "_bf16"): SIGNATURES[name] for name in
-                   ("pivk_corr49_f32", "pivk_backwarp_f32", "pivk_rgb_warp_norm_f32",
-                    "pivk_corr49_bwd_f32", "pivk_conv_chain_f32")})
+                   ("pivk_corr49_f32", "pivk_rgb_warp_norm_f32", "pivk_corr49_bwd_f32",
+                    "pivk_conv_chain_f32")})
+SIGNATURES["pivk_backwarp_bf16"] = SIGNATURES["pivk_backwarp_f32"][:3] + (_P,) + SIGNATURES["pivk_backwarp_f32"][3:]
 SIGNATURES["pivk_backwarp_bwd_bf16"] = (SIGNATURES["pivk_backwarp_bwd_f32"][:6] + (_P,)
                                         + SIGNATURES["pivk_backwarp_bwd_f32"][6:])
 

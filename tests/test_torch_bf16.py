@@ -336,7 +336,8 @@ def test_bf16_estimate_launches_only_bf16_forms(monkeypatch, version, counts):
 
 
 def test_bf16_launch_arguments(monkeypatch):
-    """Each op's ``_launch`` calls the ``_bf16`` entry point with the arguments of the f32 form."""
+    """Each op's ``_launch`` calls the ``_bf16`` entry point with the arguments of the f32 form (the
+    backwarp's with its counter of tiles that gathered directly after its output)."""
     calls = []
     monkeypatch.setattr(kernels, "launch", lambda *a: calls.append(a))
     for dtype in (torch.float32, BF16):
@@ -356,14 +357,19 @@ def test_bf16_launch_arguments(monkeypatch):
     corr_args, warp_args, rgb_args = (c[3:] for c in bf16_calls)
     assert corr_args[:4] == (f1.data_ptr(), f2.data_ptr(), out.data_ptr(), counter.data_ptr())
     assert corr_args[4:] == (2, 3, 5, 8)
-    assert warp_args == (img.data_ptr(), flow.data_ptr(), wout.data_ptr(), 2, 3, 9, 8, 5, 4, 2)
+    assert warp_args == (img.data_ptr(), flow.data_ptr(), wout.data_ptr(),
+                         warp.direct_tile_counter(torch.device("cpu")).data_ptr(), 2, 3, 9, 8, 5, 4, 2)
+    assert f32_calls[1][6:] == warp_args[4:]  # the f32 form: no counter
     assert rgb_args == (i1.data_ptr(), i1.data_ptr(), fl.data_ptr(), nout.data_ptr(), 1, 6, 7)
     # the same shapes of arguments as the float32 forms, which the C signatures share
     from piv_liteflownet_tpu_torch.kernels import build
 
     for f32_call, bf16_call in zip(f32_calls, bf16_calls):
-        assert len(f32_call) == len(bf16_call)
-        assert build.SIGNATURES[bf16_call[0]] == build.SIGNATURES[f32_call[0]]
+        sig32, sig16 = build.SIGNATURES[f32_call[0]], build.SIGNATURES[bf16_call[0]]
+        if bf16_call[0] == "pivk_backwarp_bf16":
+            assert len(bf16_call) == len(f32_call) + 1 and sig16 == sig32[:3] + (sig32[0],) + sig32[3:]
+        else:
+            assert len(f32_call) == len(bf16_call) and sig16 == sig32
     for name in ("pivk_corr49_bf16", "pivk_backwarp_bf16", "pivk_rgb_warp_norm_bf16"):
         src = (CSRC / (name[5:-5] + ".cu")).read_text()
         assert f'extern "C" int {name}(' in src
@@ -421,6 +427,79 @@ def test_bf16_staging_replayed_matches_plain():
     torch.testing.assert_close(out[:, :, :h, :w].to(BF16), want.to(BF16), rtol=0, atol=0)
 
 
+# -- the backwarp's bf16 tile rule ---------------------------------------------------------
+
+def _staged_flow(kind, b, ho, wo, stride, seed):
+    if kind == "zero":
+        return np.zeros((b, 2, ho, wo), np.float32)
+    return np.random.default_rng(seed).uniform(-kind, kind, (b, 2, ho, wo)).astype(np.float32)
+
+
+@pytest.mark.parametrize("b,c,h,w,stride,kind,aligned", [
+    (2, 5, 40, 64, 1, "zero", True), (2, 7, 40, 64, 2, 3.0, True), (1, 3, 64, 96, 1, 8.0, True),
+    (1, 3, 64, 96, 2, 8.0, True), (1, 3, 64, 96, 1, 30.0, True), (2, 5, 37, 53, 1, 3.0, True),
+    (1, 3, 40, 64, 1, 3.0, False), (1, 2, 16, 248, 2, 60.0, True)])
+def test_backwarp_bf16_staged_tiles_replay_the_kernel(b, c, h, w, stride, kind, aligned):
+    """``ops/warp.py:staged_tiles`` against the taps, and ``csrc/backwarp.cu``'s staged path replayed
+    with numpy: each staged tile's footprint rows copied from x rounded down to 8, in 16-byte chunks
+    (8 values), at most ``STAGED_CHUNKS`` a channel, and each pixel's taps read there at
+    ``(y - y0) * 8 * chunks_a_row + x - x0``; every output equals the plain backwarp's."""
+    ho, wo = warp.out_hw(h, w, stride)
+    flow = _staged_flow(kind, b, ho, wo, stride, seed=h + w + stride)
+    img = torch.from_numpy(np.random.default_rng(w).standard_normal((b, c, h, w)).astype(np.float32))
+    img = img.to(BF16).float().numpy()  # bf16 values, as the kernel stages them
+    want = warp.backwarp_plain(torch.from_numpy(img), torch.from_numpy(flow), stride).numpy()
+    direct = warp.staged_tiles(torch.from_numpy(flow), h, w, stride, aligned=aligned).numpy()
+    tw, th = warp.STAGED_TILE
+    assert direct.shape == (b, -(-ho // th), -(-wo // tw))
+    x = np.arange(wo, dtype=np.float32)[None, None, :] * np.float32(stride) + flow[:, 0]
+    y = np.arange(ho, dtype=np.float32)[None, :, None] * np.float32(stride) + flow[:, 1]
+    x0, y0 = np.floor(x), np.floor(y)
+    wx, wy = x - x0, y - y0
+    got = np.full((b, c, ho, wo), np.nan, np.float32)
+    for bi in range(b):
+        for ty in range(direct.shape[1]):
+            for tx in range(direct.shape[2]):
+                sl = (bi, slice(ty * th, (ty + 1) * th), slice(tx * tw, (tx + 1) * tw))
+                taps = [(x0[sl] + (k & 1), y0[sl] + (k >> 1)) for k in range(4)]
+                inside = [(cx >= 0) & (cx <= w - 1) & (cy >= 0) & (cy <= h - 1) for cx, cy in taps]
+                xs = np.concatenate([cx[ok] for (cx, _), ok in zip(taps, inside)])
+                ys = np.concatenate([cy[ok] for (_, cy), ok in zip(taps, inside)])
+                if not xs.size:
+                    chunks = 0
+                else:
+                    fx0, fy0 = int(xs.min()) // 8 * 8, int(ys.min())
+                    ncw = (int(xs.max()) - fx0) // 8 + 1
+                    chunks = ncw * (int(ys.max()) - fy0 + 1)
+                assert bool(direct[bi, ty, tx]) == (w % 8 != 0 or not aligned or chunks > warp.STAGED_CHUNKS)
+                if direct[bi, ty, tx] or not xs.size:
+                    got[(bi, slice(None)) + sl[1:]] = want[(bi, slice(None)) + sl[1:]] if xs.size else 0.0
+                    continue
+                stage = np.zeros((c, 8 * warp.STAGED_CHUNKS), np.float32)  # the channels' staged rows
+                rows = int(ys.max()) - fy0 + 1
+                cols = np.minimum(fx0 + np.arange(8 * ncw), w - 1)
+                stage[:, :8 * ncw * rows] = img[bi][:, fy0:fy0 + rows][:, :, cols].reshape(c, -1)
+                acc = np.zeros((c,) + x0[sl].shape, np.float32)
+                for k, ((cx, cy), ok) in enumerate(zip(taps, inside)):
+                    off = ((cy - fy0) * 8 * ncw + cx - fx0).astype(np.int64)
+                    wgt = ((wx[sl] if k & 1 else 1 - wx[sl]) * (wy[sl] if k >> 1 else 1 - wy[sl])).astype(np.float32)
+                    vals = np.where(ok, stage[:, np.where(ok, off, 0)], 0.0)
+                    acc = acc + np.where(ok, wgt * vals, 0.0).astype(np.float32)
+                got[(bi, slice(None)) + sl[1:]] = acc
+    assert not np.isnan(got).any()
+    np.testing.assert_allclose(got, want, rtol=1e-6, atol=1e-6)
+    assert warp.staged_tiles(torch.from_numpy(flow), h, w, stride, aligned=aligned).dtype == torch.bool
+
+
+def test_backwarp_bf16_staged_constants_match_the_source():
+    src = (CSRC / "backwarp.cu").read_text()
+    tw, th = map(int, re.search(r"constexpr int TW = (\d+), TH = (\d+);", src).groups())
+    chunks = int(re.search(r"constexpr int CHUNKS = (\d+);", src).group(1))
+    assert ((tw, th), chunks) == (warp.STAGED_TILE, warp.STAGED_CHUNKS)
+    assert "W % 8 == 0 && reinterpret_cast<uintptr_t>(img) % 16 == 0" in src
+    assert warp.direct_tile_counter(torch.device("cpu")) is warp.direct_tile_counter(torch.device("cpu"))
+
+
 # -- on the card -------------------------------------------------------------------------
 
 def _bf16_ulp(t: torch.Tensor) -> torch.Tensor:
@@ -459,16 +538,37 @@ def test_corr49_bf16_kernel_matches_rounded_f32_plain(cuda, b, c, h, w):
 
 @pytest.mark.gpu
 @pytest.mark.parametrize("b,c,h,w,stride,mag", [(1, 64, 64, 96, 1, 8.0), (2, 5, 37, 53, 1, 30.0),
-                                                 (1, 64, 64, 96, 2, 8.0), (2, 7, 37, 53, 2, 30.0)])
+                                                 (1, 64, 64, 96, 2, 8.0), (2, 7, 37, 53, 2, 30.0),
+                                                 (2, 33, 40, 64, 1, 3.0), (2, 7, 40, 64, 2, 3.0),
+                                                 (2, 5, 41, 67, 1, 4.0), (1, 33, 64, 96, 1, 30.0),
+                                                 (2, 33, 40, 64, 2, 30.0)])
 def test_backwarp_bf16_kernel_matches_rounded_f32_plain(cuda, b, c, h, w, stride, mag):
     g = torch.Generator(device=cuda).manual_seed(c + stride)
     img = torch.randn(b, c, h, w, device=cuda, generator=g).to(BF16)
     ho, wo = warp.out_hw(h, w, stride)
     flow = ((torch.rand(b, 2, ho, wo, device=cuda, generator=g) * 2 - 1) * mag).to(BF16)
+    counter = warp.direct_tile_counter(cuda)
+    counter.zero_()
     got = warp.backwarp(img, flow, stride)
     torch.cuda.synchronize()
+    assert int(counter.item()) == int(warp.staged_tiles(flow.float(), h, w, stride).sum())
     _hold_to_reference(got, warp.backwarp_plain(img.float(), flow.float(), stride), 1e-5,
                        f"backwarp bf16 [{b},{c},{h},{w}] stride {stride}")
+
+
+@pytest.mark.gpu
+def test_backwarp_bf16_off_16_bytes_gathers_every_tile(cuda):
+    b, c, h, w = 1, 5, 40, 64
+    base = torch.randn(b * c * h * w + 1, device=cuda).to(BF16)
+    img = base[1:].view(b, c, h, w)
+    flow = (torch.rand(b, 2, h, w, device=cuda) * 6 - 3).to(BF16)
+    counter = warp.direct_tile_counter(cuda)
+    counter.zero_()
+    got = warp.backwarp(img, flow)
+    torch.cuda.synchronize()
+    rule = warp.staged_tiles(flow.float(), h, w, 1, aligned=False)
+    assert bool(rule.all()) and int(counter.item()) == rule.numel()
+    _hold_to_reference(got, warp.backwarp_plain(img.float(), flow.float()), 1e-5, "backwarp bf16 2 bytes off")
 
 
 @pytest.mark.gpu

@@ -38,7 +38,8 @@ on both sides) and the same JAX params (``from_jax_params``):
 - the kernel path without a card: a bf16 step of v1 and v2 through faked
   launches reaches only the ``_bf16`` entry points (v1: 6/11/6 forward, 11
   ``backwarp_bwd`` and 6 ``corr49_bwd``), the launches pass the float32 forms'
-  arguments (plus the warp gradient's float32 workspace), and the cost-volume
+  arguments (the warp gradient's with its slow-path counter and the int32 boxes of
+  its owner rectangles), and the cost-volume
   backward's bf16 tile rule and layout, read back from the source and replayed.
 
 The ``gpu`` tests hold each bf16 backward kernel on the card to the float32
@@ -497,7 +498,8 @@ def test_bf16_step_through_faked_kernels(monkeypatch, version, fwd, bwd):
 
 def test_bf16_backward_launch_arguments(monkeypatch):
     """Each backward wrapper calls its ``_bf16`` entry point with the float32 form's arguments;
-    the warp gradient's also with a float32 workspace of the image's shape, after the counter."""
+    the warp gradient's with its count of slow-path rectangles in the counter's place and, after
+    it, the int32 boxes of its owner rectangles (4 each)."""
     calls, workspaces = [], []
     real_empty = torch.empty
 
@@ -523,11 +525,11 @@ def test_bf16_backward_launch_arguments(monkeypatch):
                                                 g_f2.data_ptr(), correlation.edge_tile_counter(f1.device).data_ptr(),
                                                 2, 3, 5, 8)
     assert build.SIGNATURES["pivk_corr49_bwd_bf16"] == build.SIGNATURES["pivk_corr49_bwd_f32"]
-    # the warp gradient: the f32 form's arguments with the workspace after the counter
-    assert len(workspaces) == 1 and workspaces[0].dtype == torch.float32
-    assert tuple(workspaces[0].shape) == tuple(img.shape)
+    # the warp gradient: the f32 form's arguments, its own counter, and the boxes after it
+    assert len(workspaces) == 1 and workspaces[0].dtype == torch.int32
+    assert tuple(workspaces[0].shape) == (2, *warp.owner_grid(9, 8), 4)
     assert w16[3:9] == (img.data_ptr(), flow.data_ptr(), gout.data_ptr(), g_img.data_ptr(), g_flow.data_ptr(),
-                        warp.out_of_window_counter(img.device).data_ptr())
+                        warp.slow_rect_counter(img.device).data_ptr())
     assert w16[9] == workspaces[0].data_ptr() and w16[10:] == (2, 3, 9, 8, 5, 4, 2)
     assert len(w16) == len(w32) + 1
     sig32, sig16 = build.SIGNATURES["pivk_backwarp_bwd_f32"], build.SIGNATURES["pivk_backwarp_bwd_bf16"]
@@ -612,7 +614,9 @@ def test_breakdown_groups_the_bf16_backward_and_transposes():
     from piv_liteflownet_tpu_torch.breakdown import group_of, summarize
 
     assert group_of("void (anonymous namespace)::backwarp_bwd_kernel<1, __nv_bfloat16>(...)") == "backwarp_bwd"
-    assert group_of("(anonymous namespace)::round_to_bf16_kernel(float const*, __nv_bfloat16*)") == "backwarp_bwd"
+    assert group_of("void (anonymous namespace)::own::backwarp_bwd_owner_kernel<2>(...)") == "backwarp_bwd"
+    assert group_of("void (anonymous namespace)::own::owner_boxes_kernel<1>(...)") == "backwarp_bwd"
+    assert group_of("(anonymous namespace)::stg::backwarp_staged_kernel(__nv_bfloat16 const*, ...)") == "backwarp"
     assert group_of("void (anonymous namespace)::corr49_bwd_kernel<__nv_bfloat16, true>(...)") == "corr49_bwd"
     out = summarize([("void cudnn::ops::nchwToNhwcKernel<__nv_bfloat16>", 0, 1000),
                      ("sm90_xmma_fprop_implicit_gemm_bf16", 1000, 4000)], calls=1)
@@ -640,20 +644,25 @@ def _hold_to_reference(got: torch.Tensor, f32_plain: torch.Tensor, f32_tol: floa
 @pytest.mark.gpu
 @pytest.mark.parametrize("b,c,h,w,stride,mag", [
     (8, 64, 256, 256, 1, 2.0), (2, 64, 128, 160, 2, 2.0), (2, 5, 37, 53, 1, 30.0), (2, 7, 37, 53, 2, 30.0),
-    (1, 16, 96, 128, 1, 30.0)])
+    (1, 16, 96, 128, 1, 30.0), (2, 33, 41, 67, 1, 8.0), (2, 33, 41, 67, 2, 30.0), (1, 5, 64, 96, 2, 8.0)])
 def test_backwarp_bwd_bf16_kernel_matches_rounded_f32_plain(cuda, b, c, h, w, stride, mag):
     gen = torch.Generator(device=cuda).manual_seed(c + stride)
     img = torch.randn(b, c, h, w, device=cuda, generator=gen).to(BF16).requires_grad_()
     ho, wo = warp.out_hw(h, w, stride)
     flow = ((torch.rand(b, 2, ho, wo, device=cuda, generator=gen) * 2 - 1) * mag).to(BF16).requires_grad_()
     gout = torch.randn(b, c, ho, wo, device=cuda, generator=gen).to(BF16)
-    counter = warp.out_of_window_counter(cuda)
+    counter = warp.slow_rect_counter(cuda)
     counter.zero_()
     before = warp.bwd_bf16_launches
     warp.backwarp(img, flow, stride).backward(gout)
     torch.cuda.synchronize()
     assert warp.bwd_bf16_launches == before + 1
-    assert int(counter.item()) == warp.out_of_window_tiles(flow.detach().float(), h, w, stride)
+    assert int(counter.item()) == warp.slow_rectangles(flow.detach().float(), h, w, stride)
+    g_img, g_flow = torch.empty_like(img), torch.empty_like(flow)  # a second launch is bit-equal
+    warp._launch_bwd(img.detach(), flow.detach(), gout, stride, g_img, g_flow)
+    torch.cuda.synchronize()
+    assert torch.equal(g_img.view(torch.int16), img.grad.view(torch.int16))
+    assert torch.equal(g_flow.view(torch.int16), flow.grad.view(torch.int16))
     want_img, want_flow = warp.backwarp_bwd_plain(img.detach().float(), flow.detach().float(), gout.float(), stride)
     tol = 1e-5 * max(float(want_img.abs().max()), float(want_flow.abs().max()), 1.0)
     _hold_to_reference(img.grad, want_img, tol, f"g_img [{b},{c},{h},{w}] stride {stride}")
