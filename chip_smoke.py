@@ -46,7 +46,8 @@ the script exits non-zero without the final line.
    held to ``tile_plan`` and both paths required): each held to the
    float32 plain version on the bf16 inputs upcast to float32, then rounded
    to bf16, within one bf16 ulp of that reference plus the float32 kernel's
-   own tolerance, elementwise; ``backwarp``'s bf16 form also at odd widths and
+   own tolerance, elementwise, and a second launch of the cost volume's bf16
+   form bit-equal to the first; ``backwarp``'s bf16 form also at odd widths and
    channel counts (5, 7, 33, 192), widths a multiple of 8 and a tensor 2 bytes
    off 16, its count of tiles that gathered directly held to
    ``ops/warp.py:staged_tiles`` and both of its paths required. Then, the
@@ -58,7 +59,8 @@ the script exits non-zero without the final line.
    ``ops/warp.py:owner_rects``, both paths required, and a second launch
    bit-equal to the first), ``corr49_bwd`` at the training step's level
    shapes and its edge shapes, widths a multiple of 4 but not of 8 among
-   them (its edge count held to ``tile_plan``, both paths required).
+   them (its edge count held to ``tile_plan``, both paths required, and a
+   second launch bit-equal to the first).
    Then the bf16 form of ``conv_chain``: one conv of k = 1, 3, 5 and 7 on the
    tensor-core and the FFMA path, held as above (one bf16 ulp of the rounded
    float32 plain version, plus its 1e-5 * max|plain|), and every stack
@@ -109,9 +111,13 @@ the script exits non-zero without the final line.
    plain version in bf16 and their bound from the bf16 bytes; ``backwarp``'s
    bf16 form alone also with a random 8 px flow and at stride 2, beside its
    float32 form alone and, with ``--parent DIR`` (another checkout's
-   ``piv_liteflownet_tpu_torch/csrc``, whose ``backwarp.cu`` and
-   ``backwarp_bwd.cu`` are built beside this tree's), the parent's bf16 form
-   in turns (tree, parent, parent, tree), with ``ptxas``'s lines.
+   ``piv_liteflownet_tpu_torch/csrc``, whose ``backwarp.cu``,
+   ``backwarp_bwd.cu``, ``corr49.cu`` and ``corr49_bwd.cu`` are built beside
+   this tree's), the parent's bf16 form in turns (tree, parent, parent,
+   tree), with ``ptxas``'s lines; ``corr49``'s bf16 and float32 forms alone
+   in turns with the parent's (the float32 outputs of the two trees
+   bit-equal), the bf16 form's bound counting its products at the bf16
+   tensor-core rate (989 TFLOP/s), with ``ptxas``'s lines.
 5. Training at 256^2 batch 8 on synthetic particle pairs: one train step
    through the kernels (the training path: the launch counts are set to 0
    just before it and read just after) and one through the plain ops from
@@ -139,10 +145,13 @@ the script exits non-zero without the final line.
    plain path's error plus 1e-3), the loss falling over the same steps as
    the float32 phase, ms/step (median, p90) and peak memory beside the
    float32 step's; and the two bf16 backward kernels alone beside their
-   float32 forms, their plain version in bf16 and their bf16 bound;
+   float32 forms, their plain version in bf16 and their bf16 bound
+   (``corr49_bwd``'s at the bf16 tensor-core rate, and in turns with its
+   float32 form and, with ``--parent``, the parent's two forms, whose float32
+   output must be bit-equal to this tree's);
    ``backwarp_bwd``'s at stride 1 (smooth and random 8 px flow) and stride 2,
    with ``ptxas``'s lines and, with ``--parent``, the parent's bf16 form (its
-   float32 workspace preallocated) in turns.
+   int32 boxes preallocated) in turns.
 
 The line before the last is ``{"kernels": [...]}`` (``launches``: per call of
 each kernel's own path, the piv v1 estimate for the forward kernels, the
@@ -153,7 +162,7 @@ train step for the backward ones; ``launches_per_train_step`` of the float32 piv
 ``launches_by_path`` for all twelve C entry points); the last line is
 ``{"ok": true, "device": {...}}``. Without a CUDA device it exits 2 and
 prints no result. It needs no argument; ``--parent DIR`` adds the parent's
-warp kernels to phases 4 and 5.
+warp and cost-volume kernels to phases 4 and 5.
 """
 
 from __future__ import annotations
@@ -507,12 +516,17 @@ def check_bf16_kernels(dev, ops):
         if n_edge != (plan.n_tiles if plan.edge else 0) or corr.uses_edge_path(f1, f2) != plan.edge:
             failures.append(f"corr49_bf16 [{b},{c},{h},{w}]: {n_edge} edge-path tiles, the tile rule "
                             f"says {plan.n_tiles if plan.edge else 0}")
+        again = torch.empty_like(got)  # a second launch: bit-equal
+        corr._launch(f1, f2, again)
+        torch.cuda.synchronize()
+        if not torch.equal(again.view(torch.int16), got.view(torch.int16)):
+            failures.append(f"corr49_bf16 [{b},{c},{h},{w}]: two launches differ")
         a, bb = f1.float(), f2.float()
         hold("corr49_bf16", f"[{b},{c},{h},{w}]{'' if aligned else ' 2 bytes off'}, {n_edge}/{plan.n_tiles} "
              f"edge-path tiles", got, corr.corr49_plain(a, bb), CORR_RTOL * float((a * bb).abs().mean()))
-        del f1, f2, got, a, bb
+        del f1, f2, got, a, bb, again
     log(f"  corr49_bf16 tiles over these cases: {tiles} (each edge count equal to "
-        f"ops/correlation.py:tile_plan)")
+        f"ops/correlation.py:tile_plan; every case's second launch bit-equal to its first)")
     if not all(tiles.values()):
         failures.append(f"corr49_bf16: a path of the kernel never ran: {tiles}")
     direct_counter = warp.direct_tile_counter(dev)
@@ -682,14 +696,20 @@ def check_bf16_backward(dev, ops, hold, failures, seed):
         if n_edge != (plan.n_tiles if plan.edge else 0) or corr.uses_edge_path(f1, f2, g) != plan.edge:
             failures.append(f"corr49_bwd_bf16 [{b},{c},{h},{w}]: {n_edge} edge-path tiles, the tile rule "
                             f"says {plan.n_tiles if plan.edge else 0}")
+        g_f1, g_f2 = torch.empty_like(f1), torch.empty_like(f2)  # a second launch: bit-equal
+        corr._launch_bwd(f1.detach(), f2.detach(), g, g_f1, g_f2)
+        torch.cuda.synchronize()
+        if not (torch.equal(g_f1.view(torch.int16), f1.grad.view(torch.int16))
+                and torch.equal(g_f2.view(torch.int16), f2.grad.view(torch.int16))):
+            failures.append(f"corr49_bwd_bf16 [{b},{c},{h},{w}]: two launches differ")
         want1, want2 = corr.corr49_bwd_plain(f1.detach().float(), f2.detach().float(), g.float())
         tol = BWD_RTOL * max(float(want1.abs().max()), float(want2.abs().max()), 1.0)
         what = f"[{b},{c},{h},{w}]{'' if aligned else ' 2 bytes off'}, {n_edge}/{plan.n_tiles} edge"
         hold("corr49_bwd_bf16", "g_f1 " + what, f1.grad, want1, tol)
         hold("corr49_bwd_bf16", "g_f2 " + what, f2.grad, want2, tol)
-        del f1, f2, g, out, want1, want2
+        del f1, f2, g, out, want1, want2, g_f1, g_f2
     log(f"  corr49_bwd_bf16 tiles over these cases: {corr_tiles} (each edge count equal to "
-        f"ops/correlation.py:tile_plan)")
+        f"ops/correlation.py:tile_plan; every case's second launch bit-equal to its first)")
     if not all(corr_tiles.values()):
         failures.append(f"corr49_bwd_bf16: a path of the kernel never ran: {corr_tiles}")
     return seed
@@ -1313,6 +1333,43 @@ def time_all(dev, ops, models, bf16_models, card, build_log, parent=None):
     return rows
 
 
+def corr_turns(dev, corr, timer, card, parent, shape, backward: bool) -> dict:
+    """The cost-volume kernel (``backward``: its gradient) alone at ``shape``, in bf16 and float32,
+    and, given ``parent`` (another tree's kernels, ``warp_library``), the parent's two forms on the
+    same inputs, in turns (name -> [ms, ms]). The float32 outputs of the two trees must be bit-equal
+    (the float32 forms keep their code); raises otherwise."""
+    b, c, h, w = shape
+    maps32 = [randn((b, c, h, w), 61, dev), randn((b, c, h, w), 62, dev)]
+    if backward:
+        maps32.append(randn((b, 49, h, w), 63, dev))
+    counter = torch.zeros(1, dtype=torch.int32, device=dev)
+    fns, outs = {}, {}
+    for dtype, tag in ((torch.bfloat16, "bf16"), (torch.float32, "f32")):
+        ins = [t.to(dtype) for t in maps32]
+        if backward:
+            mine, theirs = [torch.empty_like(ins[0]) for _ in range(2)], [torch.empty_like(ins[0]) for _ in range(2)]
+            fns[f"tree {tag}"] = lambda ins=ins, o=mine: corr._launch_bwd(*ins, *o)
+            name, args = f"pivk_corr49_bwd_{tag}", [t.data_ptr() for t in ins + theirs]
+        else:
+            mine, theirs = [torch.empty((b, 49, h, w), device=dev, dtype=dtype) for _ in range(2)]
+            mine, theirs = [mine], [theirs]
+            fns[f"tree {tag}"] = lambda ins=ins, o=mine: corr._launch(*ins, *o)
+            name, args = f"pivk_corr49_{tag}", [t.data_ptr() for t in ins + theirs]
+        if parent is not None:
+            fns[f"parent {tag}"] = parent_call(parent, name, dev, *args, counter.data_ptr(), b, c, h, w)
+        outs[tag] = (mine, theirs)
+    turns = in_turns(timer, fns)
+    what = "corr49_bwd" if backward else "corr49"
+    line = ", ".join(f"{k} {v[0]:.4f} / {v[1]:.4f}" for k, v in turns.items())
+    log(f"  {what} {list(shape)} alone, in turns: {line} ms  ({card})")
+    if parent is not None:
+        mine, theirs = outs["f32"]
+        if not all(torch.equal(x, y) for x, y in zip(mine, theirs)):
+            raise AssertionError(f"{what}: the float32 form's output differs from the parent's")
+        log(f"  {what} float32 output bit-equal to the parent's")
+    return turns
+
+
 def time_bf16_kernels(dev, ops, timer, card, f32_rows, build_log, parent=None):
     """The bf16 forms at their level-1 shapes of a 1024^2 pair: through the op (``ms``), alone
     into a preallocated output (``launch_ms``), the plain version in bf16, and the bound from the
@@ -1328,14 +1385,23 @@ def time_bf16_kernels(dev, ops, timer, card, f32_rows, build_log, parent=None):
     b, c, h, w = 1, 64, MAIN_H // 2, MAIN_W // 2
     f1, f2 = randn((b, c, h, w), 1, dev).to(bf), randn((b, c, h, w), 2, dev).to(bf)
     out = torch.empty((b, 49, h, w), device=dev, dtype=bf)
+    turns = corr_turns(dev, corr, timer, card, parent, (b, c, h, w), backward=False)
     rows["corr49_bf16"] = dict(
         shape=f"[{b},{c},{h},{w}]", ms=timer(lambda: corr.corr49(f1, f2)),
-        launch_ms=timer(lambda: corr._launch(f1, f2, out)), plain_ms=timer(lambda: corr.corr49_plain(f1, f2)),
-        library_ms=None, bound=bound_ms(2 * (2 * c + 49) * b * h * w, 2 * 49 * c * b * h * w))
+        launch_ms=float(np.median(turns["tree bf16"])), turns_ms=turns["tree bf16"],
+        parent_launch_ms=turns.get("parent bf16"), f32_ms=float(np.median(turns["tree f32"])),
+        plain_ms=timer(lambda: corr.corr49_plain(f1, f2)), library_ms=None,
+        # bf16 products summed in f32: tensor-core work (K6 bf16's rate)
+        bound=bound_ms(2 * (2 * c + 49) * b * h * w, 2 * 49 * c * b * h * w, BF16_FLOPS_PER_S),
+        ptxas=ptxas_lines(build_log, "corr49_bf16.cu"))
+    log(f"  corr49_bf16 {rows['corr49_bf16']['shape']}: bound {rows['corr49_bf16']['bound'][0]:.4f} ms "
+        f"({rows['corr49_bf16']['bound'][1]}, {rows['corr49_bf16']['bound'][0] / rows['corr49_bf16']['launch_ms']:.1%} "
+        f"of it alone)  ({card})")
     del f1, f2, out
     b, c, h, w = 1, 64, MAIN_H, MAIN_W
     img32 = randn((b, c, h, w), 3, dev)
     img = img32.to(bf)
+    parent_counter = torch.zeros(1, dtype=torch.int32, device=dev)
     cases = []
     for s, kind in ((1, "smooth"), (1, 8.0), (2, "smooth")):
         ho, wo = warp.out_hw(h, w, s)
@@ -1345,7 +1411,7 @@ def time_bf16_kernels(dev, ops, timer, card, f32_rows, build_log, parent=None):
         fns = {"tree": lambda: warp._launch(img, flow, s, out)}
         if parent is not None:
             fns["parent"] = parent_call(parent, "pivk_backwarp_bf16", dev, img.data_ptr(), flow.data_ptr(),
-                                        out.data_ptr(), b, c, h, w, ho, wo, s)
+                                        out.data_ptr(), parent_counter.data_ptr(), b, c, h, w, ho, wo, s)
         turns = in_turns(timer, fns)
         case = dict(shape=f"[{b},{c},{h},{w}] stride {s}", flow=flow_name(kind), launch_ms=float(np.median(turns["tree"])),
                     f32_launch_ms=timer(lambda: warp._launch(img32, flow32, s, out32)),
@@ -1674,7 +1740,7 @@ def time_bf16_backward(dev, ops, timer, card, f32_rows, build_log, parent=None):
     in this call, the plain version in bf16, and the bound from the function's bf16 bytes; for
     ``backwarp_bwd_bf16`` at stride 1 with a smooth and a random 8 px flow and at stride 2, with
     ``ptxas``'s lines for its source and, given ``parent`` (another tree's warp kernels,
-    ``warp_library``), beside the parent's bf16 form alone (its float32 workspace preallocated),
+    ``warp_library``), beside the parent's bf16 form alone (its int32 boxes preallocated),
     in turns. No single PyTorch call computes their function in bf16: ``grid_sampler_2d_backward``
     on a bf16 map takes a bf16 grid, whose normalised coordinates are coarser than a pixel at 256."""
     corr, warp, _, _ = ops
@@ -1683,7 +1749,7 @@ def time_bf16_backward(dev, ops, timer, card, f32_rows, build_log, parent=None):
     b, c, h, w = TRAIN_B, 64, TRAIN_H, TRAIN_W
     img = randn((b, c, h, w), 31, dev).to(bf)
     g_img = torch.empty_like(img)
-    workspace = torch.empty(img.shape, device=dev) if parent is not None else None
+    boxes = torch.empty((b, *warp.owner_grid(h, w), 4), device=dev, dtype=torch.int32)
     parent_counter = torch.zeros(1, dtype=torch.int32, device=dev)
     cases = []
     for s, kind in ((1, "smooth"), (1, 8.0), (2, "smooth")):
@@ -1697,7 +1763,7 @@ def time_bf16_backward(dev, ops, timer, card, f32_rows, build_log, parent=None):
         if parent is not None:
             fns["parent"] = parent_call(parent, "pivk_backwarp_bwd_bf16", dev, img.data_ptr(), flow.data_ptr(),
                                         gout.data_ptr(), g_img.data_ptr(), g_flow.data_ptr(),
-                                        parent_counter.data_ptr(), workspace.data_ptr(), b, c, h, w, ho, wo, s)
+                                        parent_counter.data_ptr(), boxes.data_ptr(), b, c, h, w, ho, wo, s)
         turns = in_turns(timer, fns)
         case = dict(shape=f"[{b},{c},{h},{w}] stride {s}", flow=flow_name(kind), ms=float(np.median(turns["tree"])),
                     turns_ms=turns["tree"], parent_ms=turns.get("parent"), bound=bound_ms(nbytes, 24 * n_out))
@@ -1719,16 +1785,19 @@ def time_bf16_backward(dev, ops, timer, card, f32_rows, build_log, parent=None):
         del flow, gout, g_flow
     rows["backwarp_bwd_bf16"]["cases"] = [
         {k: (v[0] if k == "bound" else v) for k, v in case.items()} for case in cases]
-    del img, g_img, workspace
+    del img, g_img, boxes
     b, c, h, w = TRAIN_B, 64, TRAIN_H // 2, TRAIN_W // 2
     f1, f2 = randn((b, c, h, w), 35, dev).to(bf), randn((b, c, h, w), 36, dev).to(bf)
     g = randn((b, 49, h, w), 37, dev).to(bf)
     g_f1, g_f2 = torch.empty_like(f1), torch.empty_like(f2)
+    turns = corr_turns(dev, corr, timer, card, parent, (b, c, h, w), backward=True)
     rows["corr49_bwd_bf16"] = dict(
-        ms=timer(lambda: corr._launch_bwd(f1, f2, g, g_f1, g_f2)),
+        ms=float(np.median(turns["tree bf16"])), turns_ms=turns["tree bf16"], parent_ms=turns.get("parent bf16"),
         plain_ms=timer(lambda: corr.corr49_bwd_plain(f1, f2, g)), library_ms=None,
         shape=f"[{b},{c},{h},{w}]", f32_ms=f32_rows["corr49_bwd"]["ms"],
-        bound=bound_ms(2 * (4 * c + 49) * b * h * w, 2 * 2 * 49 * c * b * h * w))
+        # bf16 products summed in f32: tensor-core work (K6 bf16's rate)
+        bound=bound_ms(2 * (4 * c + 49) * b * h * w, 2 * 2 * 49 * c * b * h * w, BF16_FLOPS_PER_S),
+        ptxas=ptxas_lines(build_log, "corr49_bwd_bf16.cu"))
     r = rows["corr49_bwd_bf16"]
     log(f"  corr49_bwd_bf16 {r['shape']}: {r['ms']:.4f} ms alone, float32 form {r['f32_ms']:.4f} ms (bf16/f32 "
         f"{r['ms'] / r['f32_ms']:.3f}); bound {r['bound'][0]:.4f} ms ({r['bound'][1]}, "
@@ -1821,9 +1890,9 @@ def corr_channel_scan(dev, corr, timer, card):
     return fits
 
 
-#: The parent tree's warp entry points whose C signatures differ from this tree's (its bf16
-#: backwarp takes no counter).
-PARENT_SIGNATURES = {"pivk_backwarp_bf16": ("pivk_backwarp_f32",)}
+#: The parent tree's sources built beside this tree's (its bf16 cost-volume forms live in the
+#: float32 forms' sources).
+PARENT_SOURCES = ("backwarp.cu", "backwarp_bwd.cu", "corr49.cu", "corr49_bwd.cu")
 
 
 def main(argv=None) -> int:
@@ -1831,8 +1900,8 @@ def main(argv=None) -> int:
 
     parser = argparse.ArgumentParser(description="Smoke run of the PyTorch port on one CUDA card.")
     parser.add_argument("--parent", type=Path, default=None,
-                        help="another checkout's piv_liteflownet_tpu_torch/csrc: its warp kernels' bf16 forms "
-                             "are built and timed in turns beside this tree's (phases 4 and 5)")
+                        help="another checkout's piv_liteflownet_tpu_torch/csrc: its warp and cost-volume "
+                             "kernels are built and timed in turns beside this tree's (phases 4 and 5)")
     args = parser.parse_args(argv)
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device is available", file=sys.stderr, flush=True)
@@ -1860,9 +1929,10 @@ def main(argv=None) -> int:
     parent = None
     if args.parent is not None:
         t_parent = time.perf_counter()
-        parent, parent_ptxas = warp_library(args.parent.resolve(), build.BUILD_DIR.parent / "parent_warps", signatures={
-            name: build.SIGNATURES[like] for name, (like,) in PARENT_SIGNATURES.items()})
-        log(f"  the parent's warp kernels from {args.parent}: built in {time.perf_counter() - t_parent:.2f} s")
+        parent, parent_ptxas = warp_library(args.parent.resolve(), build.BUILD_DIR.parent / "parent_warps",
+                                            PARENT_SOURCES)
+        log(f"  the parent's warp and cost-volume kernels from {args.parent}: built in "
+            f"{time.perf_counter() - t_parent:.2f} s")
         for src, lines in parent_ptxas.items():
             for line in lines:
                 log(f"    parent {src}: {line}")
@@ -1895,9 +1965,9 @@ def main(argv=None) -> int:
 
     sources = {"corr49": "corr49.cu", "backwarp": "backwarp.cu", "rgb_warp_norm": "rgb_warp_norm.cu",
                "conv_chain": "conv_chain.cu", "backwarp_bwd": "backwarp_bwd.cu",
-               "corr49_bwd": "corr49_bwd.cu", "corr49_bf16": "corr49.cu", "backwarp_bf16": "backwarp.cu",
+               "corr49_bwd": "corr49_bwd.cu", "corr49_bf16": "corr49_bf16.cu", "backwarp_bf16": "backwarp.cu",
                "rgb_warp_norm_bf16": "rgb_warp_norm.cu", "backwarp_bwd_bf16": "backwarp_bwd.cu",
-               "corr49_bwd_bf16": "corr49_bwd.cu", "conv_chain_bf16": "conv_chain.cu"}
+               "corr49_bwd_bf16": "corr49_bwd_bf16.cu", "conv_chain_bf16": "conv_chain.cu"}
     replaces = {
         "corr49": "piv_liteflownet_tpu/ops/pallas_corr.py:66,162",
         "backwarp": "piv_liteflownet_tpu/ops/pallas_feat_warp.py:115",
@@ -1933,7 +2003,7 @@ def main(argv=None) -> int:
         launches_by_path={p: counts.get(name, 0) for p, counts in paths.items()},
         max_abs_err=errs[name], ms=r["ms"], plain_ms=r["plain_ms"], bound_ms=r["bound"][0],
         bound_by=r["bound"][1], library_ms=r["library_ms"],
-        **{k: r[k] for k in ("launch_ms", "bound_f32_ms", "f32_ms", "parent_ms", "parent_launch_ms", "cudnn_ms",
+        **{k: r[k] for k in ("launch_ms", "bound_f32_ms", "f32_ms", "parent_ms", "parent_launch_ms", "turns_ms", "cudnn_ms",
                              "repack_proxy_ms", "repack_bound_ms", "ptxas", "cases", "channel_scan",
                              "layer_split") if k in r})
         for name, r in rows.items()]

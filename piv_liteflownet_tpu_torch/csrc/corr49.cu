@@ -26,15 +26,8 @@
 // the output leaves as 16-byte stores. Odd widths take the edge path
 // (4-byte copies, scalar stores).
 //
-// The bf16 form (pivk_corr49_bf16) is the same function, summed in f32 and
-// rounded once to bf16 on store (the TPU kernel's output is in f1's dtype).
-// It stages bf16 through the same ring, 8 values per 16-byte copy, with the
-// f2 window widened to columns x0-8 .. x0+TX+7 so that every chunk stays
-// aligned (Layout below); a thread widens what it reads to f32 registers
-// (8-byte shared loads of 4 values) and the output leaves as 8-byte stores.
-// Its vector path needs W % 8 == 0; its edge path stages with plain 2-byte
-// loads and stores, since cp.async copies no less than 4 bytes. It moves
-// half the f32 form's bytes.
+// The bf16 form (pivk_corr49_bf16) has its own kernel, on the tensor cores:
+// csrc/corr49_bf16.cu. The templates below are instantiated for float only.
 
 #include "corr_tiles.cuh"
 #include "device_guard.cuh"
@@ -51,9 +44,8 @@ constexpr int SH = TY + 2 * MD;       // 14 staged f2 rows
 constexpr int CC = 8;                 // channels per stage
 constexpr int NS = 3;                 // stages in the ring
 
-// The shared-memory layout of one element type T (float or bf16). Staged f2 columns start PAD
-// columns left of the tile, a whole 16-byte chunk of the map: 4 in f32 (the 3-pixel halo and one
-// more), 8 in bf16.
+// The shared-memory layout of one element type T (float). Staged f2 columns start PAD columns
+// left of the tile, a whole 16-byte chunk of the map: 4 (the 3-pixel halo and one more).
 template <typename T>
 struct Layout {
   static constexpr int V = 16 / (int)sizeof(T);        // values per 16-byte chunk
@@ -63,7 +55,7 @@ struct Layout {
   static constexpr int F1_CH = TY * TX;                // values of one staged f1 channel
   static constexpr int F1_OFF = CC * F2_CH;            // f1 follows the CC f2 channels in a stage
   static constexpr int STAGE = CC * (F2_CH + F1_CH);
-  static constexpr int SMEM = NS * STAGE * (int)sizeof(T);  // 78,336 bytes in f32 (two blocks per SM), 44,544 in bf16
+  static constexpr int SMEM = NS * STAGE * (int)sizeof(T);  // 78,336 bytes in f32 (two blocks per SM)
   // 16-byte chunks of one stage: the f2 chunks, then the f1 chunks
   static constexpr int F2_CHUNKS = CC * SH * (SW / V);
   static constexpr int F1_CHUNKS = CC * TY * (TX / V);
@@ -269,9 +261,4 @@ int run(const void* f1, const void* f2, void* out, void* edge_tiles, int B, int 
 extern "C" int pivk_corr49_f32(const void* f1, const void* f2, void* out, void* edge_tiles, int B, int C,
                                int H, int W, int device, void* stream) {
   return run<float>(f1, f2, out, edge_tiles, B, C, H, W, device, stream);
-}
-
-extern "C" int pivk_corr49_bf16(const void* f1, const void* f2, void* out, void* edge_tiles, int B, int C,
-                                int H, int W, int device, void* stream) {
-  return run<elem::bf16>(f1, f2, out, edge_tiles, B, C, H, W, device, stream);
 }

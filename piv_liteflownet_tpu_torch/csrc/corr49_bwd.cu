@@ -43,20 +43,9 @@
 // loads on distinct banks. Odd widths take the edge path (4-byte copies,
 // scalar reads of g).
 //
-// The bf16 form (pivk_corr49_bwd_bf16) is the same function on bf16 maps and
-// g, summed in f32 (weights, products and the shuffle reduction) and rounded
-// once to bf16 on store; JAX takes the XLA VJP of the bf16 shift-stack there.
-// It moves half the f32 form's bytes (~80 MB at the shape above, ~24 us at
-// 3.35 TB/s). The ring holds bf16, 8 values per 16-byte chunk: the staged map
-// starts 8 columns left of the tile (48 staged columns) and g's mirrored
-// windows start 8 columns left or at the tile (40 columns), so every chunk
-// stays aligned and the vector path needs W % 8 == 0. A lane widens what it
-// reads to f32: g directly (8-byte loads of 4 values), the mirrored windows
-// value by value, its 12 staged values with three 8-byte shared loads. Those
-// are served a half-warp (16 lanes: two pixel groups x 8 staged rows) at a
-// time, so the rows are 56 values (28 banks) apart, which puts the 16 loads
-// on distinct bank pairs. The edge path stages with plain 2-byte loads and
-// stores (copy1 in csrc/corr_tiles.cuh).
+// The bf16 form (pivk_corr49_bwd_bf16) has its own kernel, on the tensor
+// cores: csrc/corr49_bwd_bf16.cu. The templates below are instantiated for
+// float only.
 
 #include "corr_tiles.cuh"
 #include "device_guard.cuh"
@@ -74,7 +63,7 @@ constexpr int SH = TY + 2 * MD;       // 14 staged rows
 constexpr int CC = 8;                 // channels per stage
 constexpr int NS = 3;                 // stages in the ring
 
-// The shared-memory layout of one element type T (float or bf16), in values of T. Staged map
+// The shared-memory layout of one element type T (float), in values of T. Staged map
 // columns start PAD columns left of the tile, a whole 16-byte chunk of the map.
 template <typename T>
 struct Layout {
@@ -90,7 +79,7 @@ struct Layout {
   static constexpr int GDS = TY * GMW + V;             // values per displacement (bank spread)
   static constexpr int G_OFF = (NS - 1) * STAGE;       // g's windows share the last stage's memory
   static constexpr int G_VALS = NDISP * GDS;
-  static constexpr int SMEM = (G_OFF + (STAGE > G_VALS ? STAGE : G_VALS)) * (int)sizeof(T);  // 96,656 bytes in f32 (two blocks per SM), 57,232 in bf16
+  static constexpr int SMEM = (G_OFF + (STAGE > G_VALS ? STAGE : G_VALS)) * (int)sizeof(T);  // 96,656 bytes in f32 (two blocks per SM)
   static constexpr int CHUNKS = CC * SH * (SW / V);    // 16-byte chunks of one stage
   static constexpr int SLOTS = (CHUNKS + NT - 1) / NT;
   static_assert(STAGE <= (1 << 14), "Chunk::meta packs dst in 14 bits");
@@ -148,7 +137,7 @@ __device__ __forceinline__ void stage_scalar(T* st, const T* mc, int left, int x
 }
 
 // Where the mirrored window of displacement column dxi starts: its column offset from x0, a
-// whole chunk left of the tile for dx < 0 (-4 in f32, -8 in bf16), else at the tile.
+// whole chunk left of the tile for dx < 0 (-4), else at the tile.
 template <typename T>
 __device__ __forceinline__ int mirror_x(int dxi) { return dxi < MD ? -Layout<T>::V : 0; }
 
@@ -360,9 +349,4 @@ int run(const void* f1, const void* f2, const void* g, void* g_f1, void* g_f2, v
 extern "C" int pivk_corr49_bwd_f32(const void* f1, const void* f2, const void* g, void* g_f1, void* g_f2,
                                    void* edge_tiles, int B, int C, int H, int W, int device, void* stream) {
   return run<float>(f1, f2, g, g_f1, g_f2, edge_tiles, B, C, H, W, device, stream);
-}
-
-extern "C" int pivk_corr49_bwd_bf16(const void* f1, const void* f2, const void* g, void* g_f1, void* g_f2,
-                                    void* edge_tiles, int B, int C, int H, int W, int device, void* stream) {
-  return run<elem::bf16>(f1, f2, g, g_f1, g_f2, edge_tiles, B, C, H, W, device, stream);
 }

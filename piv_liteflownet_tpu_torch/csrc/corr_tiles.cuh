@@ -23,11 +23,12 @@
 // device counter so the caller can see which path ran (one plain add by one
 // thread per launch: no atomics).
 //
-// Both kernels have a bf16 form too. A 16-byte chunk then holds 8 values, so
-// the vector path needs W a multiple of 8, the staged columns start 8 to the
-// left of the tile to keep each chunk aligned, and the edge path stages with
-// plain 2-byte loads and stores (copy1), since cp.async copies no less than 4
-// bytes.
+// The bf16 forms of both kernels are kernels of their own, on the tensor
+// cores (csrc/corr49_bf16.cu, csrc/corr49_bwd_bf16.cu, csrc/corr_mma.cuh),
+// that take their copies, the device counter and the path rule from here. A
+// 16-byte chunk then holds 8 values, so their vector path needs W a multiple
+// of 8, and their edge path stages with plain 2-byte loads and stores
+// (copy1), since cp.async copies no less than 4 bytes.
 
 #pragma once
 
@@ -78,8 +79,7 @@ __device__ __forceinline__ void cp_async_wait() {
   asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
 }
 
-// v[0..11] = row[0..11] as f32 with three shared-memory loads: 16-byte ones in f32 (row 16
-// bytes aligned), 8-byte ones in bf16 (row 8 bytes aligned).
+// v[0..11] = row[0..11] with three 16-byte shared-memory loads (row 16 bytes aligned).
 template <typename T>
 __device__ __forceinline__ void load_row(const T* row, float (&v)[ROWV]) {
 #pragma unroll

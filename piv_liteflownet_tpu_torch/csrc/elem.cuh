@@ -38,8 +38,7 @@ __device__ __forceinline__ uint32_t pack2(float a, float b) {
   return *reinterpret_cast<const uint32_t*>(&h);
 }
 
-// Four adjacent values from shared memory as f32: one 16-byte load in f32, one 8-byte in bf16
-// (p aligned to the load).
+// Four adjacent f32 values from shared memory, one 16-byte load (p aligned to it).
 __device__ __forceinline__ void load4(const float* p, float* v) {
   const float4 t = *reinterpret_cast<const float4*>(p);
   v[0] = t.x;
@@ -47,16 +46,8 @@ __device__ __forceinline__ void load4(const float* p, float* v) {
   v[2] = t.z;
   v[3] = t.w;
 }
-__device__ __forceinline__ void load4(const bf16* p, float* v) {
-  const uint2 t = *reinterpret_cast<const uint2*>(p);
-  v[0] = lo(t.x);
-  v[1] = hi(t.x);
-  v[2] = lo(t.y);
-  v[3] = hi(t.y);
-}
 
-// Four adjacent values from device memory as f32, through the read-only cache: one 16-byte
-// load in f32, one 8-byte in bf16 (p aligned to the load).
+// Four adjacent f32 values from device memory through the read-only cache, one 16-byte load.
 __device__ __forceinline__ void ldg4(const float* p, float* v) {
   const float4 t = __ldg(reinterpret_cast<const float4*>(p));
   v[0] = t.x;
@@ -64,20 +55,10 @@ __device__ __forceinline__ void ldg4(const float* p, float* v) {
   v[2] = t.z;
   v[3] = t.w;
 }
-__device__ __forceinline__ void ldg4(const bf16* p, float* v) {
-  const uint2 t = __ldg(reinterpret_cast<const uint2*>(p));
-  v[0] = lo(t.x);
-  v[1] = hi(t.x);
-  v[2] = lo(t.y);
-  v[3] = hi(t.y);
-}
 
-// Four adjacent values to device memory, each v[i] * s: one 16-byte store in f32, one 8-byte in bf16.
+// Four adjacent f32 values to device memory, each v[i] * s, one 16-byte store.
 __device__ __forceinline__ void store4(float* p, const float* v, float s) {
   *reinterpret_cast<float4*>(p) = make_float4(v[0] * s, v[1] * s, v[2] * s, v[3] * s);
-}
-__device__ __forceinline__ void store4(bf16* p, const float* v, float s) {
-  *reinterpret_cast<uint2*>(p) = make_uint2(pack2(v[0] * s, v[1] * s), pack2(v[2] * s, v[3] * s));
 }
 
 }  // namespace elem

@@ -21,9 +21,12 @@ the kernels' edge path and adds its tiles to :func:`edge_tile_counter`.
 
 Both kernels have a bfloat16 form (``pivk_corr49_bf16``,
 ``pivk_corr49_bwd_bf16``): the same function on bf16 maps (and g), summed in
-float32 and rounded once to bf16. A 16-byte row chunk holds 8 bf16, so their
-vector path needs a width that is a multiple of 8. :func:`corr49_plain` and
-:func:`corr49_bwd_plain` keep their operands' dtype.
+float32 and rounded once to bf16, as banded products on the tensor cores
+(``csrc/corr49_bf16.cu``, ``csrc/corr49_bwd_bf16.cu``): 16 channels a stage,
+a ring of 4 stages, one block per SM walking the same 32x8 tiles. A 16-byte
+row chunk holds 8 bf16, so their vector path needs a width that is a multiple
+of 8. :func:`corr49_plain` and :func:`corr49_bwd_plain` keep their operands'
+dtype.
 """
 
 from __future__ import annotations
@@ -53,6 +56,8 @@ FWD_TILE = (32, 8)
 BWD_TILE = (32, 8)
 #: Channels per stage and stages in the ring of both kernels (``CC``, ``NS``).
 STAGE_CHANNELS, STAGES = 8, 3
+#: The same for the bf16 kernels, ``csrc/corr49_bf16.cu`` and ``csrc/corr49_bwd_bf16.cu``.
+BF16_STAGE_CHANNELS, BF16_STAGES = 16, 3
 #: Shared memory a block may take on an H100 (227 KB).
 SMEM_LIMIT = 232448
 
@@ -60,11 +65,11 @@ SMEM_LIMIT = 232448
 class CorrTiles(NamedTuple):
     """The tiles of one launch of a cost-volume kernel."""
 
-    x0: list[int]        # column origin of each tile column
+    x0: list[int]        # column origin of each tile column (bf16: from -4, the tiles' windows on the 16-byte grid)
     y0: list[int]        # row origin of each tile row
     tile: tuple[int, int]  # (width, height) of a tile
     batch: int           # the grid's third axis: the batch, times 2 outputs for the backward
-    smem: int            # dynamic shared memory of a block, bytes
+    smem: int            # dynamic shared memory of a block, bytes (bf16: one block per SM walks the tiles)
     edge: bool           # 4-byte staging: the width is not a multiple of 4 (or a tensor is misaligned)
 
     @property
@@ -80,21 +85,32 @@ def chunk_values(dtype: torch.dtype = torch.float32) -> int:
 def smem_bytes(backward: bool, dtype: torch.dtype = torch.float32) -> int:
     """Dynamic shared memory of a block, as ``SMEM`` in the kernel's source works it out.
 
-    Forward: a ring of ``STAGES`` stages, each ``STAGE_CHANNELS`` f2 tiles plus halo
-    ((TY+6) x (TX+2*pad), pad 4 in float32 and 8 in bf16, a whole chunk) and f1 tiles
-    (TY x TX), in ``dtype``. Backward: a ring of stages, each ``STAGE_CHANNELS`` tiles plus
-    halo of one map in rows of TX+2*pad+v values (v = 4 in float32, 8 in bf16: a chunk), the
-    last stage sharing its memory with g's mirrored windows (per displacement, TY rows of TX+v
-    values, + v).
+    float32 forward: a ring of ``STAGES`` stages, each ``STAGE_CHANNELS`` f2 tiles plus halo
+    ((TY+6) x (TX+8)) and f1 tiles (TY x TX). float32 backward: a ring of stages, each
+    ``STAGE_CHANNELS`` tiles plus halo of one map in rows of TX+12 values, the last stage sharing
+    its memory with g's mirrored windows (per displacement, TY rows of TX+4 values, + 4).
+
+    bf16 (``BF16_STAGES`` stages of ``BF16_STAGE_CHANNELS`` channels of TMA boxes TX+8 columns
+    wide, the maps' with a row past their need that spaces the channels, and 128 bytes to align
+    them): forward, f2's box (TY+7) rows and f1's TY, then each row pair's staged output, 49 planes
+    of 2 x TX + 8; backward, the map's box as f2's, two buffers of g's windows (7 boxes of 7
+    planes of (TY+1) rows, each box padded to a multiple of 128 bytes), then two staged outputs of
+    each row pair, 16 channels of 2 x TX + 8.
     """
     tx, ty = BWD_TILE if backward else FWD_TILE
     sh = ty + 2 * MD
-    v = chunk_values(dtype)
-    pad = max(v, MD + 1)
+    if dtype == torch.bfloat16:
+        bw, ring = tx + 8, BF16_STAGES * BF16_STAGE_CHANNELS
+        pair_rows = 2 * tx + 8  # a row pair's staged output: 2 rows of tx pixels, + 8 (bank spread)
+        if not backward:
+            return 2 * (ring * (sh + 1 + ty) * bw + (ty // 2) * NDISP * pair_rows) + 128
+        g_box = -(-(2 * MD + 1) * (ty + 1) * bw // 64) * 64
+        return 2 * (ring * (sh + 1) * bw + 2 * (2 * MD + 1) * g_box
+                    + 2 * (ty // 2) * BF16_STAGE_CHANNELS * pair_rows) + 128
     if not backward:
-        return dtype.itemsize * STAGES * STAGE_CHANNELS * (sh * (tx + 2 * pad) + ty * tx)
-    stage = STAGE_CHANNELS * sh * (tx + 2 * pad + v)
-    return dtype.itemsize * ((STAGES - 1) * stage + max(stage, NDISP * (ty * (tx + v) + v)))
+        return 4 * STAGES * STAGE_CHANNELS * (sh * (tx + 8) + ty * tx)
+    stage = STAGE_CHANNELS * sh * (tx + 12)
+    return 4 * ((STAGES - 1) * stage + max(stage, NDISP * (ty * (tx + 4) + 4)))
 
 
 def tile_plan(b: int, h: int, w: int, backward: bool = False, aligned: bool = True,
@@ -106,7 +122,8 @@ def tile_plan(b: int, h: int, w: int, backward: bool = False, aligned: bool = Tr
     :func:`uses_edge_path` checks.
     """
     tx, ty = BWD_TILE if backward else FWD_TILE
-    return CorrTiles(list(range(0, w, tx)), list(range(0, h, ty)), (tx, ty), 2 * b if backward else b,
+    x_first = -4 if dtype == torch.bfloat16 else 0  # bf16 tiles start 4 columns left of the 16-byte grid
+    return CorrTiles(list(range(x_first, w, tx)), list(range(0, h, ty)), (tx, ty), 2 * b if backward else b,
                      smem_bytes(backward, dtype), w % chunk_values(dtype) != 0 or not aligned)
 
 

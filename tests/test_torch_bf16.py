@@ -370,9 +370,10 @@ def test_bf16_launch_arguments(monkeypatch):
             assert len(bf16_call) == len(f32_call) + 1 and sig16 == sig32[:3] + (sig32[0],) + sig32[3:]
         else:
             assert len(f32_call) == len(bf16_call) and sig16 == sig32
-    for name in ("pivk_corr49_bf16", "pivk_backwarp_bf16", "pivk_rgb_warp_norm_bf16"):
-        src = (CSRC / (name[5:-5] + ".cu")).read_text()
-        assert f'extern "C" int {name}(' in src
+    # the cost volume's bf16 form has a source of its own; the others share their float32 form's
+    for name, source in (("pivk_corr49_bf16", "corr49_bf16.cu"), ("pivk_backwarp_bf16", "backwarp.cu"),
+                         ("pivk_rgb_warp_norm_bf16", "rgb_warp_norm.cu")):
+        assert f'extern "C" int {name}(' in (CSRC / source).read_text()
 
 
 # -- the cost volume's bf16 tile rule ------------------------------------------------------
@@ -391,40 +392,46 @@ def test_bf16_tile_rule():
     # the backward has a bf16 form too, with the same width rule
     assert not correlation.tile_plan(1, 8, 16, backward=True, dtype=BF16).edge
     assert correlation.tile_plan(1, 8, 12, backward=True, dtype=BF16).edge
-    # the shared memory the source states for each form
-    stated = re.search(r"constexpr int SMEM = .*// ([\d,]+) bytes in f32.*?([\d,]+) in bf16",
-                       (CSRC / "corr49.cu").read_text())
-    assert [int(g.replace(",", "")) for g in stated.groups()] == [
+    # the bf16 tiles start at x = -4, so that their windows lie on the 16-byte grid
+    assert correlation.tile_plan(1, 8, 512, dtype=BF16).x0[:2] == [-4, 28]
+    assert len(correlation.tile_plan(1, 8, 512, dtype=BF16).x0) == 17
+    assert correlation.tile_plan(1, 8, 512).x0[:2] == [0, 32]
+    # the shared memory each form's source states (the bf16 form has its own, csrc/corr49_bf16.cu)
+    stated32 = re.search(r"constexpr int SMEM = .*// ([\d,]+) bytes in f32", (CSRC / "corr49.cu").read_text())
+    stated16 = re.search(r"constexpr int SMEM = .*// ([\d,]+) bytes", (CSRC / "corr49_bf16.cu").read_text())
+    assert [int(m.group(1).replace(",", "")) for m in (stated32, stated16)] == [
         correlation.smem_bytes(False), correlation.smem_bytes(False, BF16)]
     assert correlation.smem_bytes(False, BF16) <= correlation.SMEM_LIMIT
 
 
 def test_bf16_staging_replayed_matches_plain():
-    """The bf16 forward's layout: f2 staged from column x0-8 (48 columns a row), a thread reading
-    its 12 values from column 4k+4. Replayed in float64 on bf16 values against the plain version
-    in float64, then rounded to bf16 as the kernel rounds its f32 sums."""
+    """The bf16 forward's windows: tiles of 32x8 from x = -4, each staging columns x0-4 .. x0+35 of
+    f2 (rows y0-3 ..) and of f1 (rows y0 ..); output pixel p of the tile meets f1's box column p+4
+    and f2's columns p+4+dx. Replayed in float64 on bf16 values against the plain version in
+    float64, then rounded to bf16 as the kernel rounds its f32 sums."""
     rng = np.random.default_rng(9)
     b, c, h, w = 1, 3, 10, 40
     f1, f2 = (torch.from_numpy(rng.standard_normal((b, c, h, w))).to(BF16).double() for _ in range(2))
-    tx, ty, pad = 32, 8, 8
-    ny, nx = -(-h // ty), -(-w // tx)
-    f2p = torch.nn.functional.pad(f2, (pad, nx * tx - w + pad, 3, ny * ty - h + 3))
-    out = torch.zeros(b, 49, ny * ty, nx * tx, dtype=torch.float64)
-    f1p = torch.nn.functional.pad(f1, (0, nx * tx - w, 0, ny * ty - h))
+    tx, ty = 32, 8
+    ny, nx = -(-h // ty), -(-(w + 4) // tx)
+    assert nx == len(correlation.tile_plan(b, h, w, dtype=BF16).x0)
+    f2p = torch.nn.functional.pad(f2, (8, nx * tx - w + 8, 3, ny * ty - h + 3))  # column 0: x = -8
+    f1p = torch.nn.functional.pad(f1, (8, nx * tx - w + 8, 0, ny * ty - h))
+    out = torch.zeros(b, 49, ny * ty, nx * tx, dtype=torch.float64)  # column 0: x = -4
     for by in range(ny):
         for bx in range(nx):
-            staged = f2p[:, :, by * ty:by * ty + ty + 6, bx * tx:bx * tx + tx + 2 * pad]
-            assert staged.shape[-1] == 48
-            for k in range(8):
-                for yy in range(ty):
-                    a = f1p[:, :, by * ty + yy, bx * tx + 4 * k:bx * tx + 4 * k + 4]
+            box2 = f2p[:, :, by * ty:by * ty + ty + 6, bx * tx:bx * tx + tx + 8]  # x0-4 .. x0+35
+            box1 = f1p[:, :, by * ty:by * ty + ty, bx * tx:bx * tx + tx + 8]
+            assert box2.shape[-1] == 40
+            for yy in range(ty):
+                for p in range(tx):
+                    a = box1[:, :, yy, p + 4]
                     for dy in range(7):
-                        v = staged[:, :, yy + dy, 4 * k + pad - 4:4 * k + pad + 8]
                         for dx in range(7):
-                            out[:, dy * 7 + dx, by * ty + yy, bx * tx + 4 * k:bx * tx + 4 * k + 4] = (
-                                (a * v[..., dx + 1:dx + 5]).sum(1) * (1.0 / c))
+                            out[:, dy * 7 + dx, by * ty + yy, bx * tx + p] = (
+                                (a * box2[:, :, yy + dy, p + 4 + dx - 3]).sum(1) * (1.0 / c))
     want = correlation.corr49_plain(f1, f2)
-    torch.testing.assert_close(out[:, :, :h, :w].to(BF16), want.to(BF16), rtol=0, atol=0)
+    torch.testing.assert_close(out[:, :, :h, 4:4 + w].to(BF16), want.to(BF16), rtol=0, atol=0)
 
 
 # -- the backwarp's bf16 tile rule ---------------------------------------------------------

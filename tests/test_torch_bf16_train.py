@@ -534,8 +534,8 @@ def test_bf16_backward_launch_arguments(monkeypatch):
     assert len(w16) == len(w32) + 1
     sig32, sig16 = build.SIGNATURES["pivk_backwarp_bwd_f32"], build.SIGNATURES["pivk_backwarp_bwd_bf16"]
     assert sig16 == sig32[:6] + (sig32[0],) + sig32[6:]
-    for name in ("pivk_backwarp_bwd_bf16", "pivk_corr49_bwd_bf16"):
-        assert f'extern "C" int {name}(' in (CSRC / (name[5:-5] + ".cu")).read_text()
+    for name, source in (("pivk_backwarp_bwd_bf16", "backwarp_bwd.cu"), ("pivk_corr49_bwd_bf16", "corr49_bwd_bf16.cu")):
+        assert f'extern "C" int {name}(' in (CSRC / source).read_text()
 
 
 # -- the cost-volume backward's bf16 tile rule and layout -----------------------------------
@@ -547,55 +547,49 @@ def test_corr49_bwd_bf16_tile_rule_mirrors_the_source():
         assert correlation.tile_plan(2, 8, w, backward=True, dtype=BF16).edge
     assert correlation.tile_plan(2, 8, 16, backward=True, aligned=False, dtype=BF16).edge
     plan = correlation.tile_plan(8, 128, 128, backward=True, dtype=BF16)
-    assert plan.batch == 16 and plan.n_tiles == 16 * 4 * 16 and plan.smem <= correlation.SMEM_LIMIT
-    stated = re.search(r"constexpr int SMEM = .*// ([\d,]+) bytes in f32.*?([\d,]+) in bf16",
-                       (CSRC / "corr49_bwd.cu").read_text())
-    assert [int(g.replace(",", "")) for g in stated.groups()] == [
+    # the bf16 tiles start at x = -4 (their windows on the 16-byte grid): 5 tile columns over 128
+    assert plan.batch == 16 and plan.x0 == [-4, 28, 60, 92, 124] and plan.n_tiles == 16 * 5 * 16
+    assert plan.smem <= correlation.SMEM_LIMIT
+    stated32 = re.search(r"constexpr int SMEM = .*// ([\d,]+) bytes in f32", (CSRC / "corr49_bwd.cu").read_text())
+    stated16 = re.search(r"constexpr int SMEM = .*// ([\d,]+) bytes", (CSRC / "corr49_bwd_bf16.cu").read_text())
+    assert [int(m.group(1).replace(",", "")) for m in (stated32, stated16)] == [
         correlation.smem_bytes(True), correlation.smem_bytes(True, BF16)]
 
 
 def _emulate_backward_bf16(f1, f2, g):
-    """``csrc/corr49_bwd.cu`` in bf16 (float64 here, on bf16 values): the map staged from column
-    x0-8 (48 columns a row), lane (j, k) reading 12 values from column 4k+4 of staged row ty+j;
-    g's mirrored window of displacement column dx staged from column x0-8 (dx < 3) or x0, 40
-    columns, read at column 4k+dx-3 minus that origin; the 8 lanes of a group summed."""
+    """``csrc/corr49_bwd_bf16.cu``'s windows in bf16 (float64 here, on bf16 values): tiles of 32x8
+    from x = -4; per tile the map's box, columns x0-4 .. x0+35 of rows y0-3 .., and g's windows
+    (plane d: the same columns of rows y0 .. for g_f1, of rows y0-dy .. for g_f2); output pixel p
+    of the tile meets box column p+4+dx (g_f1: g at its own pixel, plane (dy, dx)) or p+4-dx (g_f2:
+    g at that column, plane (dy, dx) read from rows shifted by -dy); summed in one f64 sum."""
     b, c, h, w = f1.shape
-    tw, th, pad, gmw = 32, 8, 8, 40
-    ny, nx = -(-h // th), -(-w // tw)
+    tw, th = 32, 8
+    ny, nx = -(-h // th), -(-(w + 4) // tw)
 
-    def staged(t, left, width, top, height):  # per tile: rows y0-top.., columns x0-left..
-        p = F.pad(t, (left, nx * tw - w + width, top, ny * th - h + height))
-        return p.unfold(2, height, th).unfold(3, width, tw)[:, :, :ny, :nx]
+    def boxes(t, top, height):  # per tile: rows y0-top .., columns x0-4 .. x0+35 (x0 = 32k - 4)
+        p = F.pad(t, (8, nx * tw - w + 40, 8, ny * th - h + height + 8))[:, :, 8 - top:, :]
+        return p.unfold(2, height, th).unfold(3, tw + 8, tw)[:, :, :ny, :nx]
 
-    maps = (staged(f2, pad, tw + 2 * pad, 3, th + 6), staged(f1, pad, tw + 2 * pad, 3, th + 6))
-    sg = staged(g / c, pad, gmw + pad, 3, th + 6)  # columns from x0-8, rows from y0-3
+    maps = (boxes(f2, 3, th + 6), boxes(f1, 3, th + 6))
+    g_own = boxes(g, 0, th)                                      # g_f1: rows from y0
+    g_shifted = [boxes(g, dyi - 3, th) for dyi in range(7)]      # g_f2: rows from y0 - dy
     outs = torch.zeros(2, b, c, ny * th, nx * tw, dtype=torch.float64)
     for o in range(2):
-        for ty in range(0, th, 2):
-            for k in range(8):
-                p = torch.zeros(8, 8, b, c, ny, nx, dtype=torch.float64)  # [lane j, value, ...]
-                for j in range(8):
-                    v = maps[o][..., ty + j, 4 * k + pad - 4:4 * k + pad + 8]
-                    for r in range(2):
-                        dyi = j - r
-                        if not 0 <= dyi < 7:
-                            continue
-                        for dx in range(7):
-                            d = dyi * 7 + dx
-                            if o == 0:
-                                wt = sg[:, d, :, :, 3 + ty + r, pad + 4 * k:pad + 4 * k + 4]
-                            else:  # the window of d: plane 48-d, rows shifted by dyi-3, from its origin
-                                origin = -8 if dx < 3 else 0
-                                col = 4 * k + dx - 3 - origin
-                                assert 0 <= col and col + 4 <= gmw
-                                base = pad + origin + col
-                                wt = sg[:, 48 - d, :, :, ty + r + dyi, base:base + 4]
-                            for i in range(4):
-                                p[j, 4 * r + i] += wt[:, None, ..., i] * v[..., i + dx + 1]
-                vals = p.sum(0)  # the shuffle reduction: lane j keeps value j
-                for j in range(8):
-                    outs[o, :, :, ty + (j >> 2)::th, 4 * k + (j & 3)::tw] = vals[j]
-    return outs[0, :, :, :h, :w], outs[1, :, :, :h, :w]
+        for ty in range(th):
+            for px in range(tw):
+                acc = torch.zeros(b, c, ny, nx, dtype=torch.float64)
+                for dyi in range(7):
+                    for dxi in range(7):
+                        d = dyi * 7 + dxi
+                        if o == 0:  # g at the pixel, the map at (ty + dy, px + dx)
+                            wt = g_own[:, d, :, :, ty, px + 4]
+                            v = maps[0][..., ty + dyi, px + 4 + dxi - 3]
+                        else:  # g at (ty - dy, px - dx) from the window of rows shifted by -dy
+                            wt = g_shifted[dyi][:, d, :, :, ty, px + 4 - (dxi - 3)]
+                            v = maps[1][..., ty + 6 - dyi, px + 4 - (dxi - 3)]
+                        acc += wt[:, None] * v
+                outs[o, :, :, ty::th, px::tw] = acc / c
+    return outs[0, :, :, :h, 4:4 + w], outs[1, :, :, :h, 4:4 + w]
 
 
 @pytest.mark.parametrize("shape", [(1, 4, 10, 40), (1, 8, 9, 16)])
@@ -617,7 +611,8 @@ def test_breakdown_groups_the_bf16_backward_and_transposes():
     assert group_of("void (anonymous namespace)::own::backwarp_bwd_owner_kernel<2>(...)") == "backwarp_bwd"
     assert group_of("void (anonymous namespace)::own::owner_boxes_kernel<1>(...)") == "backwarp_bwd"
     assert group_of("(anonymous namespace)::stg::backwarp_staged_kernel(__nv_bfloat16 const*, ...)") == "backwarp"
-    assert group_of("void (anonymous namespace)::corr49_bwd_kernel<__nv_bfloat16, true>(...)") == "corr49_bwd"
+    assert group_of("void (anonymous namespace)::corr49_bwd_bf16_kernel<true>(...)") == "corr49_bwd"
+    assert group_of("void (anonymous namespace)::corr49_bf16_kernel<true>(...)") == "corr49"
     out = summarize([("void cudnn::ops::nchwToNhwcKernel<__nv_bfloat16>", 0, 1000),
                      ("sm90_xmma_fprop_implicit_gemm_bf16", 1000, 4000)], calls=1)
     assert out["device_ms_per_call"] == {"conv": 4.0}
