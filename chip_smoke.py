@@ -40,7 +40,7 @@ the script exits non-zero without the final line.
    in another order than cuDNN's, through up to 6 layers: 3xTF32 on the
    tensor cores, whose dropped lo*lo term is below 2^-22 of a product;
    single-pass TF32 would miss this tolerance). Then the bf16 forms of
-   ``corr49``, ``backwarp`` and ``rgb_warp_norm`` at the same level shapes,
+   ``corr49`` and ``backwarp`` at the same level shapes,
    flows of up to 30 px at both strides, and the cost volume's edge path
    (widths not a multiple of 8, a tensor 2 bytes off 16; its tile count
    held to ``tile_plan`` and both paths required): each held to the
@@ -66,7 +66,17 @@ the script exits non-zero without the final line.
    float32 plain version, plus its 1e-5 * max|plain|), and every stack
    above, whose error against the float32 kernel on the same bf16 values
    must stay within twice the plain bf16 chain's (which rounds once per
-   layer, as the kernel and the TPU kernel do).
+   layer, as the kernel and the TPU kernel do). Then both forms of
+   ``rgb_warp_norm`` (``RGB_CASES``) at the level shapes of a 1024^2 pair
+   with a random 8 px flow, a smooth flow, widths not a multiple of 4 or
+   of 2, tensors one and two elements off 16 bytes, a steep flow past the
+   float32 form's windows, a flow that leaves the map, NaN, huge and
+   infinite flows: the float32 form within atol 1e-5 of the plain version,
+   the bf16 form within one bf16 ulp of the rounded float32 plain version
+   plus 1e-5, each form's two paths (one and two pixels a lane, by the map's
+   size: ``ops/rgb_warp.py:pixels_a_lane``) required; a second launch of
+   each bit-equal to the first and, with ``--parent DIR``, the parent's
+   kernels' outputs bit-equal to this tree's.
 3. The slices end to end on synthetic particle-image pairs: ``estimate`` of
    piv v1, piv v2 and hui v2, with cuDNN convs and with the conv chain, at
    1024^2 b1, 256^2 b4 and 250x300 b1 (through the /32 resize). Each path is
@@ -87,7 +97,15 @@ the script exits non-zero without the final line.
    to the bf16 plain ops on the card, with the chain to the bf16 cuDNN path,
    and to the bf16 CPU path within 3 % of the float32 flow's max |flow|; and
    ``python -m piv_liteflownet_tpu_torch.run -m piv -v 1 --bf16`` on two
-   synthetic pairs must write float32 ``.flo`` files.
+   synthetic pairs must write float32 ``.flo`` files. Then the trained
+   weights (``run_trained``): piv v1 and v2 with the weights the JAX package
+   trained (``work/synth_run*/params_final.npz``) on the four evalset pairs
+   (``work/synth_run/evalset``) through float32 cuDNN with the kernels, the
+   plain ops on the card, the float32 chain, bf16 cuDNN and bf16 chain, and
+   the first pair on the CPU: the AEE and the worst pair's EPE of each beside
+   JAX's, and the largest |flow * sf| that reached ``rgb_warp_norm`` at each
+   level; kernels vs plain ops, card vs CPU and chain vs cuDNN within 1e-3
+   px, the AEEs within ``TRAINED``'s limits of JAX's.
 4. Times: estimate ms/pair (median and p90 of 100 calls, 30 with the conv
    chain; host clock around synchronised calls) and pairs/s, and with CUDA
    events each kernel at its level-1 shape beside its plain version, the one
@@ -105,8 +123,12 @@ the script exits non-zero without the final line.
    its bf16 bound, and the repacking of its input alone (a zero-layer
    launch; ``chain_layer_split``). bf16 ``estimate``, with cuDNN convs and with the
    chain, right after float32 for the same model and size (1024^2 b1 and
-   256^2 b4), and the peak memory of each; ``rgb_warp_norm`` and
-   ``backwarp`` (as ``corr49``) also alone into a preallocated output
+   256^2 b4), and the peak memory of each; both forms of ``rgb_warp_norm``
+   alone at the level-1 shapes of a 1024^2 pair and of a 256^2 batch-8
+   step, with a smooth and a random 8 px flow, in turns with the parent's
+   (``--parent``), beside their bound and, for the float32 form,
+   ``F.grid_sample`` of the warp half; ``backwarp`` (as ``corr49``) also
+   alone into a preallocated output
    (``launch_ms``); the bf16 forms through the op and alone, beside their
    plain version in bf16 and their bound from the bf16 bytes; ``backwarp``'s
    bf16 form alone also with a random 8 px flow and at stride 2, beside its
@@ -162,7 +184,7 @@ train step for the backward ones; ``launches_per_train_step`` of the float32 piv
 ``launches_by_path`` for all twelve C entry points); the last line is
 ``{"ok": true, "device": {...}}``. Without a CUDA device it exits 2 and
 prints no result. It needs no argument; ``--parent DIR`` adds the parent's
-warp and cost-volume kernels to phases 4 and 5.
+warp, rgb warp-norm and cost-volume kernels to phases 2, 4 and 5.
 """
 
 from __future__ import annotations
@@ -299,7 +321,7 @@ def chain_work(parts_c, weights, b, h, w):
 
 
 def check_kernels(dev, ops):
-    corr, warp, rgb, chain = ops
+    corr, warp, _, chain = ops
     errs = {"corr49": 0.0, "backwarp": 0.0, "rgb_warp_norm": 0.0, "backwarp_bwd": 0.0,
             "corr49_bwd": 0.0, "conv_chain": 0.0}
     failures = []
@@ -312,19 +334,17 @@ def check_kernels(dev, ops):
             failures.append(f"{name} {what}")
 
     seed = 0
-    corr_cases, warp_cases, rgb_cases = [], [], []
+    corr_cases, warp_cases = [], []
     for lv, (h, w), c in level_shapes(MAIN_H, MAIN_W):
         s = 2 if lv < 4 else 1
         corr_cases.append((1, c, -(-h // s), -(-w // s)))
         warp_cases.append((1, c, h, w, 1, 8.0))          # NetE-S warp
         if lv < 6:
             warp_cases.append((1, c, h, w, s, 8.0))      # NetE-M warp
-        rgb_cases.append((1, h, w, 8.0))
     # odd widths (the kernels' edge path), maps smaller than the window, one channel, 192 at 8x8
     corr_edge_cases = [(2, 3, 37, 53), (1, 192, 8, 8), (2, 5, 2, 3), (1, 1, 1, 1), (1, 4, 3, 8)]
     corr_cases += corr_edge_cases + [(1, 64, 37, 53), (4, 64, 64, 64)]
     warp_cases += [(2, 5, 37, 53, 1, 30.0), (2, 7, 37, 53, 2, 30.0), (4, 64, 128, 128, 2, 8.0)]
-    rgb_cases += [(2, 37, 53, 30.0), (4, 256, 256, 8.0)]
 
     edge_counter = corr.edge_tile_counter(dev)
     corr_tiles = {"corr49": {"vector": 0, "edge": 0}, "corr49_bwd": {"vector": 0, "edge": 0}}
@@ -360,15 +380,6 @@ def check_kernels(dev, ops):
         torch.cuda.synchronize()
         want = warp.backwarp_plain(img, flow, s)
         record("backwarp", f"[{b},{c},{h},{w}] stride {s} |flow|<={mag:g}",
-               float((got - want).abs().max()), WARP_ATOL)
-    for b, h, w, mag in rgb_cases:
-        seed += 1
-        img1, img2 = uniform((b, 3, h, w), seed, dev, 0, 1), uniform((b, 3, h, w), seed + 7, dev, 0, 1)
-        flow = uniform((b, 2, h, w), seed + 1000, dev, -mag, mag)
-        got = rgb.rgb_warp_norm(img1, img2, flow)
-        torch.cuda.synchronize()
-        want = rgb.rgb_warp_norm_plain(img1, img2, flow)
-        record("rgb_warp_norm", f"[{b},3,{h},{w}] |flow|<={mag:g}",
                float((got - want).abs().max()), WARP_ATOL)
     # the backward kernels, through autograd: at the 1024^2 level shapes and at the
     # 256^2 batch-8 training shapes, with steep flows, and at odd sizes far outside
@@ -460,7 +471,7 @@ def check_bf16_kernels(dev, ops):
     """Each kernel's bf16 form against the float32 plain version on the bf16 inputs upcast to
     float32, then rounded to bf16: within one bf16 ulp of that reference plus the float32
     kernel's own tolerance, elementwise."""
-    corr, warp, rgb, chain = ops
+    corr, warp, _, chain = ops
     bf = torch.bfloat16
     errs = dict.fromkeys(BF16_KERNELS + BF16_BWD_KERNELS, 0.0)
     failures = []
@@ -477,14 +488,13 @@ def check_bf16_kernels(dev, ops):
             failures.append(f"{name} {what}")
 
     seed = 500
-    corr_cases, warp_cases, rgb_cases = [], [], []
+    corr_cases, warp_cases = [], []
     for lv, (h, w), c in level_shapes(MAIN_H, MAIN_W):
         s = 2 if lv < 4 else 1
         corr_cases.append((1, c, -(-h // s), -(-w // s), True))
         warp_cases.append((1, c, h, w, 1, 8.0))
         if lv < 6:
             warp_cases.append((1, c, h, w, s, 8.0))
-        rgb_cases.append((1, h, w, 8.0))
     # the edge path: odd widths, widths that are a multiple of 4 but not of 8 (a float32 vector
     # launch, a bf16 edge one), maps smaller than the window, a tensor 2 bytes off 16
     corr_cases += [(2, 3, 37, 53, True), (1, 192, 8, 8, True), (2, 5, 2, 3, True), (1, 1, 1, 1, True),
@@ -495,7 +505,6 @@ def check_bf16_kernels(dev, ops):
                    (2, 5, 37, 53, 1, 30.0), (2, 7, 37, 53, 2, 30.0), (2, 33, 41, 67, 1, 4.0),
                    (2, 33, 40, 64, 1, 3.0), (2, 7, 40, 64, 2, 3.0), (2, 5, 40, 64, 1, "off"),
                    (1, 192, 32, 32, 1, 2.0)]
-    rgb_cases += [(2, 37, 53, 30.0), (4, 256, 256, 8.0)]
     edge_counter = corr.edge_tile_counter(dev)
     tiles = {"vector": 0, "edge": 0}
     for b, c, h, w, aligned in corr_cases:
@@ -557,20 +566,106 @@ def check_bf16_kernels(dev, ops):
         f"ops/warp.py:staged_tiles)")
     if not all(warp_tiles.values()):
         failures.append(f"backwarp_bf16: a path of the kernel never ran: {warp_tiles}")
-    for b, h, w, mag in rgb_cases:
-        seed += 1
-        img1 = uniform((b, 3, h, w), seed, dev, 0, 1).to(bf)
-        img2 = uniform((b, 3, h, w), seed + 7, dev, 0, 1).to(bf)
-        flow = uniform((b, 2, h, w), seed + 1000, dev, -mag, mag).to(bf)
-        got = rgb.rgb_warp_norm(img1, img2, flow)
-        torch.cuda.synchronize()
-        hold("rgb_warp_norm_bf16", f"[{b},3,{h},{w}] |flow|<={mag:g}", got,
-             rgb.rgb_warp_norm_plain(img1.float(), img2.float(), flow.float()), WARP_ATOL)
-        del img1, img2, flow, got
     seed = check_bf16_chain(dev, chain, hold, errs, failures, seed)
     seed = check_bf16_backward(dev, ops, hold, failures, seed)
     if failures:
         raise AssertionError(f"bf16 kernels disagree with their references: {failures}")
+    return errs
+
+
+# (b, h, w, flow, elements off 16 bytes) of the rgb warp-norm checks: the level shapes of a 1024^2
+# pair with a random 8 px flow, then each path and edge of the two forms
+RGB_CASES = [(1, h, w, 8.0, 0) for _, (h, w), _ in level_shapes(MAIN_H, MAIN_W)] + [
+    (4, 256, 256, 8.0, 0),
+    (1, MAIN_H, MAIN_W, "smooth", 0),
+    (2, 37, 53, 30.0, 0),      # ragged rows: the last warp of a row part empty
+    (2, 40, 66, 3.0, 0),       # the last warp of a row with two pixels in it
+    (2, 40, 64, 3.0, 1),       # each tensor one element off 16 bytes (4 bytes f32, 2 bf16)
+    (2, 40, 64, 3.0, 2),       # two elements off (8 bytes f32, 4 bf16)
+    (1, 256, 256, 30.0, 0),    # steep: taps far from their pixels
+    (2, 48, 80, "shift", 0),   # the frame sampled 0.6 of its width right, 0.4 of its height up
+    (1, 33, 130, "nan", 0),    # NaN, huge and infinite sample points among 3 px ones
+]
+
+
+def rgb_inputs(b, h, w, kind, off, dtype, seed, dev):
+    """img1, img2 ``[b,3,h,w]`` in [0, 1] and a flow ``[b,2,h,w]`` of ``kind`` (``make_flow``'s, or
+    "shift", or "nan"), in ``dtype``, each ``off`` elements past a 16-byte boundary."""
+    def place(t):
+        t = t.to(dtype)
+        if not off:
+            return t.contiguous()
+        view = torch.empty(t.numel() + 16, device=dev, dtype=dtype)[off:off + t.numel()].view(t.shape)
+        return view.copy_(t)
+
+    img1, img2 = uniform((b, 3, h, w), seed, dev, 0, 1), uniform((b, 3, h, w), seed + 7, dev, 0, 1)
+    if kind == "shift":
+        flow = torch.stack([torch.full((h, w), 0.6 * w), torch.full((h, w), -0.4 * h)]).to(dev)[None].repeat(b, 1, 1, 1)
+    elif kind == "nan":
+        flow = uniform((b, 2, h, w), seed + 1000, dev, -3, 3)
+        flow.view(-1)[::7] = float("nan")
+        flow.view(-1)[3::11] = 3e9
+        flow.view(-1)[5::13] = -float("inf")
+    else:
+        flow = make_flow(kind, b, h, w, 1, h, w, seed + 1000, dev)
+    return place(img1), place(img2), place(flow)
+
+
+def rgb_call(lib, dev, img1, img2, flow, out):
+    """A call of ``lib``'s rgb warp-norm entry point of ``img1``'s dtype."""
+    b, _, h, w = img1.shape
+    name = "pivk_rgb_warp_norm_f32" if img1.dtype == torch.float32 else "pivk_rgb_warp_norm_bf16"
+    return lambda: call_entry(lib, name, dev, img1.data_ptr(), img2.data_ptr(), flow.data_ptr(), out.data_ptr(),
+                              b, h, w)
+
+
+def check_rgb_kernels(dev, rgb, parent=None):
+    """Both forms of ``rgb_warp_norm`` on ``RGB_CASES`` through the op: the float32 form within
+    ``WARP_ATOL`` of the plain version, the bf16 form within one bf16 ulp of the float32 plain version
+    on its inputs, rounded, plus ``WARP_ATOL`` (``hold``'s test); for both a second launch bit-equal to
+    the first and, given ``parent`` (another tree's kernels, ``warp_library``), the parent's output
+    bit-equal to this tree's. Each form's two paths, one and two pixels a lane
+    (``ops/rgb_warp.py:pixels_a_lane``), must run."""
+    bf = torch.bfloat16
+    errs = {"rgb_warp_norm": 0.0, "rgb_warp_norm_bf16": 0.0}
+    failures = []
+    for dtype, name in ((torch.float32, "rgb_warp_norm"), (bf, "rgb_warp_norm_bf16")):
+        lanes = {1: 0, 2: 0}
+        for i, (b, h, w, kind, off) in enumerate(RGB_CASES):
+            img1, img2, flow = rgb_inputs(b, h, w, kind, off, dtype, 900 + i, dev)
+            got = rgb.rgb_warp_norm(img1, img2, flow)
+            torch.cuda.synchronize()
+            j = rgb.pixels_a_lane(b, h, w)
+            lanes[j] += 1
+            what = f"[{b},3,{h},{w}] {flow_name(kind)}" + (f", {off} elements off" if off else "") + f", {j} a lane"
+            ref = rgb.rgb_warp_norm_plain(img1.float(), img2.float(), flow.float())
+            if dtype == torch.float32:
+                err, tol = (got - ref).abs(), WARP_ATOL
+                ok = float(err.max()) <= tol
+            else:
+                want = ref.to(bf).float()
+                err, tol = (got.float() - want).abs(), WARP_ATOL
+                ok = got.dtype == bf and int((err > bf16_ulp(want) + tol).sum()) == 0
+            same = {"second launch": torch.empty_like(got)}
+            rgb._launch(img1, img2, flow, same["second launch"])
+            if parent is not None:
+                same["parent"] = torch.empty_like(got)
+                rgb_call(parent, dev, img1, img2, flow, same["parent"])()
+            torch.cuda.synchronize()
+            differ = [k for k, o in same.items() if not torch.equal(o.view(torch.uint8), got.view(torch.uint8))]
+            ok = ok and not differ
+            errs[name] = max(errs[name], float(err.max()))
+            log(f"  {name:18s} {what:58s} max_abs_err {float(err.max()):.3e} (tol {tol:.1e}"
+                f"{' + 1 bf16 ulp' if dtype == bf else ''}); bit-equal to {', '.join(same)}: "
+                f"{'no: ' + ', '.join(differ) if differ else 'yes'}  {'ok' if ok else 'FAIL'}")
+            if not ok:
+                failures.append(f"{name} {what}")
+            del img1, img2, flow, got, ref, same
+        log(f"  {name}: cases by pixels a lane {lanes} (ops/rgb_warp.py:pixels_a_lane)")
+        if not all(lanes.values()):
+            failures.append(f"{name}: a path of the kernel never ran: {lanes}")
+    if failures:
+        raise AssertionError(f"rgb warp-norm kernels disagree: {failures}")
     return errs
 
 
@@ -963,6 +1058,113 @@ def run_cli_bf16(model) -> None:
             f"it printed: {' | '.join(proc.stdout.strip().splitlines()[:3])}")
 
 
+# The weights the JAX package trained on synthetic PIV (BASELINE.md:603, 664-665), tracked in the
+# repository, and their evalset; per version: the weights, JAX's AEE on the evalset through
+# evaluate.py in float32 and bf16 (BASELINE.md:629-631, 668) and how far the port's may lie from each
+TRAINED = {1: ("work/synth_run/params_final.npz", 0.21952, 0.002, 0.21874, 0.005),
+           2: ("work/synth_run_v2/params_final.npz", 0.228, 0.0025, None, None)}
+EVALSET = "work/synth_run/evalset"
+TRAINED_ATOL = 1e-3  # px: kernels vs plain ops, card vs CPU, float32 chain vs float32 cuDNN
+
+
+def read_evalset(root: Path):
+    """The evalset as evaluate.py reads it (``piv_liteflownet_tpu/data/datasets.py:37-42, 127-148``:
+    each ``<base>_img1.png``, ``<base>_img2.png`` as RGB float32 / 255, ``<base>_flow.flo``):
+    names, img1 and img2 ``[N,H,W,3]``, ground truth ``[N,H,W,2]``."""
+    from piv_liteflownet_tpu_torch.run import load_image
+    from piv_liteflownet_tpu_torch.utils.flow_io import read_flow
+
+    names = [f.name[:-len("_img1.png")] for f in sorted(root.glob("*_img1.png"))]
+    if not names:
+        raise FileNotFoundError(f"no evalset pairs under {root}")
+    im1 = np.stack([load_image(str(root / f"{n}_img1.png")) for n in names])
+    im2 = np.stack([load_image(str(root / f"{n}_img2.png")) for n in names])
+    gt = np.stack([read_flow(str(root / f"{n}_flow.flo")) for n in names])
+    return names, im1, im2, gt
+
+
+def pair_epes(flow: np.ndarray, gt: np.ndarray) -> np.ndarray:
+    """Each pair's mean end-point error, as evaluate.py:94-99 takes it."""
+    return np.array([float(np.linalg.norm(f - g, axis=-1).mean()) for f, g in zip(flow.astype(np.float32), gt)])
+
+
+def run_trained(dev, ops, card) -> None:
+    """piv v1 and v2 with the tracked trained weights (``run.load_weights``, through
+    ``from_jax_params``) on the four evalset pairs (256^2, flows up to 2.5 px), through each path:
+    float32 with cuDNN convs and the kernels, float32 through the plain ops on the card, float32
+    with the conv chain, bf16 with cuDNN convs and with the chain, and the first pair on the CPU.
+    Prints per path the AEE and the worst pair's EPE against the ``.flo`` beside JAX's, the max
+    |flow difference| against the float32 kernel path, and per level the largest |flow * sf| that
+    reached ``rgb_warp_norm``'s kernel (a hook on ``_launch`` for this phase only). Raises if the
+    kernels differ from the plain ops, the card from the CPU, or the float32 chain from cuDNN by more
+    than ``TRAINED_ATOL``, or an AEE lies beyond its limit around JAX's (``TRAINED``)."""
+    from types import SimpleNamespace
+
+    from piv_liteflownet_tpu_torch import piv_liteflownet
+    from piv_liteflownet_tpu_torch.inference import estimate
+    from piv_liteflownet_tpu_torch.models.factory import config
+    from piv_liteflownet_tpu_torch.models.liteflownet import PLAIN_OPS
+    from piv_liteflownet_tpu_torch.run import load_weights
+
+    rgb = ops[2]
+    t0 = time.perf_counter()
+    root = Path(__file__).resolve().parent
+    names, im1, im2, gt = read_evalset(root / EVALSET)
+    t1, t2 = torch.from_numpy(im1).to(dev), torch.from_numpy(im2).to(dev)
+    launch, reach = rgb._launch, {}
+
+    def hooked(img1, img2, flow, out):
+        h = flow.shape[2]
+        reach[h] = max(reach.get(h, 0.0), float(flow.float().nan_to_num(0.0).abs().max()))
+        launch(img1, img2, flow, out)
+
+    failures = []
+    for version, (path, jax_f32, tol_f32, jax_bf16, tol_bf16) in TRAINED.items():
+        state, _ = load_weights(SimpleNamespace(params=str(root / path), model="piv"), config("piv", version))
+        flows, reaches = {}, {}
+        for dtype in (torch.float32, torch.bfloat16):
+            for impl in ("cudnn", "chain"):
+                model = piv_liteflownet(state, version=version, device=dev, conv_impl=impl).to(dtype)
+                key = f"{'float32' if dtype == torch.float32 else 'bf16'} {impl}"
+                reach.clear()
+                rgb._launch = hooked
+                try:
+                    flows[key] = estimate(model, t1, t2, tensor=True).float()
+                finally:
+                    rgb._launch = launch
+                reaches[key] = dict(reach)
+                if key == "float32 cudnn":
+                    flows["float32 plain ops"] = estimate(model, t1, t2, tensor=True, ops=PLAIN_OPS)
+                del model
+        cpu_model = piv_liteflownet(state, version=version, device="cpu")
+        flows["float32 CPU (first pair)"] = estimate(cpu_model, im1[:1], im2[:1], tensor=True)
+        ref = flows["float32 cudnn"]
+        diffs = {"kernels vs plain ops": float((ref - flows["float32 plain ops"]).abs().max()),
+                 "card vs CPU": float((ref[:1].cpu() - flows["float32 CPU (first pair)"]).abs().max()),
+                 "float32 chain vs cuDNN": float((flows["float32 chain"] - ref).abs().max())}
+        log(f"  trained piv v{version} ({path}) on {len(names)} evalset pairs {names}: "
+            + ", ".join(f"{k} {v:.3e} px" for k, v in diffs.items()) + f" (limit {TRAINED_ATOL:g})")
+        failures += [f"v{version} {k}: {v:.3e} px" for k, v in diffs.items() if not v <= TRAINED_ATOL]
+        for key, flow in flows.items():
+            epes = pair_epes(flow.cpu().numpy(), gt[:len(flow)])
+            aee = float(epes.mean())
+            jax, tol = ((jax_f32, tol_f32) if key.startswith("float32") and "CPU" not in key
+                        else (jax_bf16, tol_bf16) if key.startswith("bf16") else (None, None))
+            vs = f", JAX {jax:.5f} (|diff| {abs(aee - jax):.5f}, limit {tol:g})" if jax is not None else ""
+            log(f"    {key:26s} AEE {aee:.5f} px, worst pair {epes.max():.5f} ({names[int(epes.argmax())]}), "
+                f"max |flow - float32 cudnn| {float((flow.cpu() - ref[:len(flow)].cpu()).abs().max()):.3e}{vs}")
+            if jax is not None and not abs(aee - jax) <= tol:
+                failures.append(f"v{version} {key}: AEE {aee:.5f} against JAX {jax:.5f}")
+        for key in ("float32 cudnn", "bf16 cudnn"):
+            levels = sorted(reaches[key].items(), reverse=True)
+            log(f"    largest |flow * sf| into rgb_warp_norm's kernel, {key}: "
+                + ", ".join(f"{h}x{h}: {v:.3f} px" for h, v in levels))
+        del flows, state, cpu_model
+    log(f"  trained weights: {time.perf_counter() - t0:.1f} s  ({card})")
+    if failures:
+        raise AssertionError(f"trained weights: {failures}")
+
+
 # -- phase 4: times -------------------------------------------------------------------------
 
 class Timer:
@@ -1257,21 +1459,8 @@ def time_all(dev, ops, models, bf16_models, card, build_log, parent=None):
     m2 = timer(lambda: warp.backwarp(img, flow2, 2))
     log(f"  backwarp [1,64,{h},{w}] stride 2 (NetE-M, level 1): {m2:.4f} ms; bound "
         f"{bound_ms(4 * (c * h * w + (c + 2) * h * w // 4), 2 * c * h * w)[0]:.4f} ms (bytes)")
-    # rgb_warp_norm at level 1: 1024^2
-    b, h, w = 1, MAIN_H, MAIN_W
-    img1, img2 = uniform((b, 3, h, w), 6, dev, 0, 1), uniform((b, 3, h, w), 7, dev, 0, 1)
-    flow = smooth_flow(b, h, w, dev)
-    grid = pixel_grid(flow, h, w)
-    norm = torch.empty((b, 1, h, w), device=dev)
-    rows["rgb_warp_norm"] = dict(
-        ms=timer(lambda: rgb.rgb_warp_norm(img1, img2, flow)),
-        launch_ms=timer(lambda: rgb._launch(img1, img2, flow, norm)),
-        plain_ms=timer(lambda: rgb.rgb_warp_norm_plain(img1, img2, flow)),
-        library_ms=timer(lambda: F.grid_sample(img2, grid, mode="bilinear", padding_mode="zeros",
-                                               align_corners=True)),
-        shape=f"[{b},3,{h},{w}]",
-        bound=bound_ms(4 * (3 + 3 + 2 + 1) * b * h * w, 27 * b * h * w))
-    del img, img1, img2, flow, grid, flow_r, grid_r, flow2, out, norm
+    del img, flow, grid, flow_r, grid_r, flow2, out
+    rows.update(time_rgb(dev, rgb, timer, card, build_log, parent))
     rows.update(time_bf16_kernels(dev, ops, timer, card, rows, build_log, parent))
     # conv_chain at the piv v1 level-1 M, S and R stacks of a 1024^2 pair (the S stack is the
     # row) and the 6-conv v2 M and S stacks at level 2, each beside the cuDNN chain (its plain
@@ -1379,7 +1568,7 @@ def time_bf16_kernels(dev, ops, timer, card, f32_rows, build_log, parent=None):
     8 px flow and at stride 2, beside the float32 form alone on the same values, with ``ptxas``'s
     lines for its source, and, given ``parent`` (another tree's warp kernels, ``warp_library``),
     beside the parent's bf16 form alone, in turns."""
-    corr, warp, rgb, _ = ops
+    corr, warp, _, _ = ops
     bf = torch.bfloat16
     rows = {}
     b, c, h, w = 1, 64, MAIN_H // 2, MAIN_W // 2
@@ -1436,15 +1625,59 @@ def time_bf16_kernels(dev, ops, timer, card, f32_rows, build_log, parent=None):
     gs = timer(lambda: F.grid_sample(img, grid, mode="bilinear", padding_mode="zeros", align_corners=True))
     log(f"  (F.grid_sample on the bf16 map with a bf16 grid, another function: {gs:.4f} ms  ({card}))")
     del img, img32, flow, grid
-    b, h, w = 1, MAIN_H, MAIN_W
-    img1, img2 = uniform((b, 3, h, w), 6, dev, 0, 1).to(bf), uniform((b, 3, h, w), 7, dev, 0, 1).to(bf)
-    flow = smooth_flow(b, h, w, dev).to(bf)
-    norm = torch.empty((b, 1, h, w), device=dev, dtype=bf)
-    rows["rgb_warp_norm_bf16"] = dict(
-        shape=f"[{b},3,{h},{w}]", ms=timer(lambda: rgb.rgb_warp_norm(img1, img2, flow)),
-        launch_ms=timer(lambda: rgb._launch(img1, img2, flow, norm)),
-        plain_ms=timer(lambda: rgb.rgb_warp_norm_plain(img1, img2, flow)), library_ms=None,
-        bound=bound_ms(2 * (3 + 3 + 2 + 1) * b * h * w, 27 * b * h * w))
+    return rows
+
+
+def time_rgb(dev, rgb, timer, card, build_log, parent=None):
+    """Both forms of ``rgb_warp_norm`` alone (``_launch`` into a preallocated output) at the level-1
+    shapes of a 1024^2 pair and of a 256^2 batch-8 training step, each with ``smooth_flow`` and a
+    random 8 px flow, in turns with the parent's form (given ``parent``: another tree's kernels,
+    ``warp_library``) twice over (tree, parent, parent, tree); beside each its bound from the bytes
+    (each input read once, the norm written once), its share of it, and for the float32 form
+    ``F.grid_sample`` of the warp half alone on the same inputs (reads img2 and a grid, writes the
+    warped rgb; not img1, no norm). The row of each form (the 1024^2 smooth case) also has the op's
+    time, the plain version's and ``ptxas``'s lines."""
+    rows = {}
+    for dtype, name in ((torch.float32, "rgb_warp_norm"), (torch.bfloat16, "rgb_warp_norm_bf16")):
+        elt = 4 if dtype == torch.float32 else 2
+        cases = []
+        for b, h, w in ((1, MAIN_H, MAIN_W), (TRAIN_B, TRAIN_H, TRAIN_W)):
+            for kind in ("smooth", 8.0):
+                img1, img2, flow = rgb_inputs(b, h, w, kind, 0, dtype, 6, dev)
+                out = torch.empty((b, 1, h, w), device=dev, dtype=dtype)
+                fns = {"tree": lambda: rgb._launch(img1, img2, flow, out)}
+                if parent is not None:
+                    fns["parent"] = rgb_call(parent, dev, img1, img2, flow, out)
+                turns = in_turns(timer, fns)
+                for k, v in in_turns(timer, fns).items():
+                    turns[k] += v
+                case = dict(shape=f"[{b},3,{h},{w}]", flow=flow_name(kind), launch_ms=float(np.median(turns["tree"])),
+                            turns_ms=turns["tree"], parent_turns_ms=turns.get("parent"),
+                            bound=bound_ms(elt * 9 * b * h * w, 27 * b * h * w)[0])
+                extra = ""
+                if dtype == torch.float32:
+                    grid = pixel_grid(flow, h, w)
+                    case["library_ms"] = timer(lambda: F.grid_sample(img2, grid, mode="bilinear",
+                                                                     padding_mode="zeros", align_corners=True))
+                    extra = f", F.grid_sample warp half {case['library_ms']:.4f}"
+                    del grid
+                parent_txt = ("; the parent's " + " / ".join(f"{t:.4f}" for t in turns["parent"])
+                              if parent is not None else "")
+                log(f"  {name} {case['shape']} {case['flow']}: alone " + " / ".join(f"{t:.4f}" for t in turns["tree"])
+                    + f" ms{parent_txt}; bound {case['bound']:.4f} ms (bytes), {case['bound'] / case['launch_ms']:.1%} "
+                    f"of it{extra}  ({card})")
+                if not cases:
+                    rows[name] = dict(
+                        shape=case["shape"], ms=timer(lambda: rgb.rgb_warp_norm(img1, img2, flow)),
+                        launch_ms=case["launch_ms"], turns_ms=case["turns_ms"],
+                        parent_launch_ms=(float(np.median(turns["parent"])) if parent is not None else None),
+                        plain_ms=timer(lambda: rgb.rgb_warp_norm_plain(img1, img2, flow)),
+                        library_ms=case.get("library_ms"),
+                        bound=bound_ms(elt * 9 * b * h * w, 27 * b * h * w),
+                        ptxas=ptxas_lines(build_log, "rgb_warp_norm.cu"))
+                cases.append(case)
+                del img1, img2, flow, out
+        rows[name]["cases"] = cases
     return rows
 
 
@@ -1890,9 +2123,10 @@ def corr_channel_scan(dev, corr, timer, card):
     return fits
 
 
-#: The parent tree's sources built beside this tree's (its bf16 cost-volume forms live in the
-#: float32 forms' sources).
-PARENT_SOURCES = ("backwarp.cu", "backwarp_bwd.cu", "corr49.cu", "corr49_bwd.cu")
+#: The parent tree's sources built beside this tree's, those of them that it has (before its own
+#: sources for the bf16 cost volumes, their forms lived in the float32 forms' sources).
+PARENT_SOURCES = ("backwarp.cu", "backwarp_bwd.cu", "corr49.cu", "corr49_bwd.cu", "corr49_bf16.cu",
+                  "corr49_bwd_bf16.cu", "rgb_warp_norm.cu")
 
 
 def main(argv=None) -> int:
@@ -1900,8 +2134,9 @@ def main(argv=None) -> int:
 
     parser = argparse.ArgumentParser(description="Smoke run of the PyTorch port on one CUDA card.")
     parser.add_argument("--parent", type=Path, default=None,
-                        help="another checkout's piv_liteflownet_tpu_torch/csrc: its warp and cost-volume "
-                             "kernels are built and timed in turns beside this tree's (phases 4 and 5)")
+                        help="another checkout's piv_liteflownet_tpu_torch/csrc: its warp, rgb warp-norm and "
+                             "cost-volume kernels are built and timed in turns beside this tree's (phases 4 "
+                             "and 5), the rgb warp-norm's outputs held bit-equal to this tree's (phase 2)")
     args = parser.parse_args(argv)
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device is available", file=sys.stderr, flush=True)
@@ -1930,7 +2165,7 @@ def main(argv=None) -> int:
     if args.parent is not None:
         t_parent = time.perf_counter()
         parent, parent_ptxas = warp_library(args.parent.resolve(), build.BUILD_DIR.parent / "parent_warps",
-                                            PARENT_SOURCES)
+                                            tuple(src for src in PARENT_SOURCES if (args.parent / src).is_file()))
         log(f"  the parent's warp and cost-volume kernels from {args.parent}: built in "
             f"{time.perf_counter() - t_parent:.2f} s")
         for src, lines in parent_ptxas.items():
@@ -1941,12 +2176,15 @@ def main(argv=None) -> int:
     log("phase 2: kernels against their plain versions")
     errs = check_kernels(dev, ops)
     errs.update(check_bf16_kernels(dev, ops))
+    errs.update(check_rgb_kernels(dev, rgb_warp, parent))
     log(f"  ({time.perf_counter() - t_start:.1f} s)")
 
     log("phase 3: estimate end to end")
     sl = run_slice(dev, ops)
     log("  bf16 inference:")
     sl_bf16 = run_bf16_slice(dev, ops, sl["models"])
+    log("  trained weights:")
+    run_trained(dev, ops, card)
     log(f"  ({time.perf_counter() - t_start:.1f} s)")
 
     log("phase 4: times")

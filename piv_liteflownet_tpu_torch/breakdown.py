@@ -31,7 +31,7 @@ GROUPS = (
     ("conv_chain", ("conv_chain_f32_kernel", "conv_chain_bf16_kernel")),
     ("corr49", ("corr49_kernel", "corr49_bf16_kernel")),  # the float32 form, the bf16 form
     ("backwarp", ("backwarp_kernel", "backwarp_staged_kernel")),  # the float32 form, the bf16 form
-    ("rgb_warp_norm", ("rgb_warp_norm_kernel",)),
+    ("rgb_warp_norm", ("rgb_warp_norm_lanes_kernel",)),  # both forms, one or two pixels a lane
     ("corr49_bwd", ("corr49_bwd_kernel", "corr49_bwd_bf16_kernel")),
     # the float32 form; the bf16 form's main kernel and its pre-pass over the flow
     ("backwarp_bwd", ("backwarp_bwd_kernel", "backwarp_bwd_owner_kernel", "owner_boxes_kernel")),

@@ -7,14 +7,17 @@ value of the TPU kernel ``rgb_warp_norm_pallas`` and its guarded form
 -> ``[B,1,H,W]``.
 
 ``rgb_warp_norm`` launches the CUDA kernel ``csrc/rgb_warp_norm.cu`` for CUDA
-tensors (bound by bytes; one thread per pixel, the warped rgb never stored)
-and takes :func:`rgb_warp_norm_plain` for CPU tensors. It has no gradient on
-either path, as in JAX (``stop_gradient`` on the norm, and a zero tangent
-for the TPU kernel): its output never requires grad, whatever its inputs do.
+tensors (bound by bytes; the warped rgb never stored; a lane of a warp takes
+:func:`pixels_a_lane` pixels of a row, 32 apart) and takes
+:func:`rgb_warp_norm_plain` for CPU tensors. It has no gradient on either
+path, as in JAX (``stop_gradient`` on the norm, and a zero tangent for the TPU
+kernel): its output never requires grad, whatever its inputs do.
 
 Both paths keep the operands' dtype, float32 or bfloat16 (JAX: output in
 img1's dtype). The kernel's bf16 form (``pivk_rgb_warp_norm_bf16``) keeps the
-warp and the squared sum in float32 and rounds once on store.
+warp and the squared sum in float32 and rounds once on store. Both forms read
+a NaN or huge sample point as outside the map (zeros), as the plain version
+does.
 """
 
 from __future__ import annotations
@@ -28,6 +31,15 @@ from piv_liteflownet_tpu_torch.ops.warp import backwarp_plain
 launches = 0
 #: Launches of the kernel's bfloat16 form.
 bf16_launches = 0
+
+#: Pixels (``B * H * W``) from which a lane of the kernel takes two pixels instead of one
+#: (``LANES2_MIN_PIXELS`` in ``csrc/rgb_warp_norm.cu``).
+LANES2_MIN_PIXELS = 1 << 17
+
+
+def pixels_a_lane(b: int, h: int, w: int) -> int:
+    """The pixels a lane of the kernel takes at ``[b,3,h,w]``: 2 on large maps, 1 on small ones."""
+    return 2 if b * h * w >= LANES2_MIN_PIXELS else 1
 
 
 def rgb_warp_norm_plain(img1: torch.Tensor, img2: torch.Tensor, flow: torch.Tensor) -> torch.Tensor:

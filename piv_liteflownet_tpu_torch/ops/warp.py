@@ -106,8 +106,9 @@ def _taps(img: torch.Tensor, flow: torch.Tensor, stride: int):
             cx = x0 + dx
             cy = y0 + dy
             ok = (cx >= 0) & (cx <= w - 1) & (cy >= 0) & (cy <= h - 1)
-            # clamp before the integer conversion so huge coordinates stay defined
-            idx = (cy.clamp(0, h - 1) * w + cx.clamp(0, w - 1)).long().reshape(b, 1, ho * wo)
+            # clamp before the integer conversion so huge coordinates stay defined, and send a
+            # NaN one (a tap outside, as the kernels read it) to index 0
+            idx = (cy.clamp(0, h - 1) * w + cx.clamp(0, w - 1)).nan_to_num(0.0).long().reshape(b, 1, ho * wo)
             taps.append((dy, dx, wgt_y, wgt_x, ok, idx))
     return taps
 
