@@ -12,8 +12,9 @@ also with the NetE conv stacks through the ``conv_chain`` kernel
 ``.to(torch.bfloat16)``; training: ``compute_dtype=torch.bfloat16``),
 through the port's entry points (``piv_liteflownet``,
 ``hui_liteflownet``, ``estimate``, ``write_flow``/``read_flow``;
-``make_optimizer``, ``make_train_step``, ``Train``, ``resume``) at full width
-with seeded random weights, in five phases; each raises on failure, and then
+``make_optimizer``, ``make_train_step``, ``Train``, ``resume``; the data path
+and ``python -m piv_liteflownet_tpu_torch.trainer``'s ``main``) at full width
+with seeded random weights, in six phases; each raises on failure, and then
 the script exits non-zero without the final line.
 
 1. Card and build: the card's name and power limit (nvidia-smi), and the
@@ -174,6 +175,26 @@ the script exits non-zero without the final line.
    ``backwarp_bwd``'s at stride 1 (smooth and random 8 px flow) and stride 2,
    with ``ptxas``'s lines and, with ``--parent``, the parent's bf16 form (its
    int32 boxes preallocated) in turns.
+6. The data path and the trainer CLI (``run_data_path``): ``make_dataset_dir``
+   renders 32 seeded 384^2 particle pairs with their flows on the card into a
+   temporary directory (24 train, 8 val), its render and advection held to
+   the CPU's on the same particles (atol 1e-5); the default train
+   augmentation of a b8 batch of it on the card held to the CPU's with the
+   same drawn factors (atol 1e-5), both under torch's default TF32 flags
+   and with every TF32 flag on; then ``trainer.main`` in-process, piv v1 b8
+   crop 256^2 with the augmentation inside the step: 2 epochs with the
+   launch counts set to 0 just before and read just after (every train-path
+   kernel, the float32 eval forward's, no ``conv_chain``), finite losses,
+   checkpoints and ``args.txt``; ``--resume`` for epoch 3 against an unbroken
+   3-epoch run (the first loss bit for bit, the rest within rel 1e-3). Then
+   256 pairs rendered on the card (24 steps an epoch) for 2 timed epochs in
+   float32 and 2 with ``--bf16`` (only the ``_bf16`` forms launch). Times:
+   the CLI's ms/step (CUDA events around each step), the host's wait for
+   each batch and the card's idle time between steps, without each epoch's
+   first batch and that batch on its own, beside the same step with the
+   augmentation on the run's batches already on the card (no loader), on
+   one of them, phase 5's fixed-batch step, and the augmentation alone per
+   batch.
 
 The line before the last is ``{"kernels": [...]}`` (``launches``: per call of
 each kernel's own path, the piv v1 estimate for the forward kernels, the
@@ -181,7 +202,7 @@ piv v2 chain estimate for ``conv_chain``, the piv v1 train step for the
 backward ones, the piv v1 bf16 estimate for the forward ``_bf16`` forms,
 the piv v1 bf16 chain estimate for ``conv_chain_bf16``, the piv v1 bf16
 train step for the backward ones; ``launches_per_train_step`` of the float32 piv v1 step and
-``launches_by_path`` for all twelve C entry points); the last line is
+``launches_by_path`` for all twelve C entry points, the trainer CLI's two runs among the paths); the last line is
 ``{"ok": true, "device": {...}}``. Without a CUDA device it exits 2 and
 prints no result. It needs no argument; ``--parent DIR`` adds the parent's
 warp, rgb warp-norm and cost-volume kernels to phases 2, 4 and 5.
@@ -2123,6 +2144,261 @@ def corr_channel_scan(dev, corr, timer, card):
     return fits
 
 
+# -- phase 6: the data path and the trainer CLI -------------------------------------------------
+
+DATA_N, DATA_SIZE = 32, (384, 384)  # make_dataset_dir: 24 train and 8 val pairs, frames above the crop
+TIME_N = 256  # the timed runs' directory: 192 train pairs, 24 steps an epoch, beyond what the prefetch covers
+GEN_ATOL = 1e-5  # px intensity: the render's float32 product over ~45 particles a pixel in another order
+AUG_ATOL = 1e-5  # the augmentation's float32 sampling, photometric maps and sums in another order
+RESUME_RTOL = 1e-3  # see run_data_path
+CLI_PATH = "trainer CLI piv v1 256^2 b8"
+CLI_PATH_BF16 = "trainer CLI piv v1 bf16 256^2 b8"
+TF32_FLAGS = {"torch's defaults": (False, True), "all TF32 on": (True, True)}  # (matmul, cudnn)
+
+
+def set_tf32(matmul: bool, cudnn: bool) -> None:
+    torch.backends.cuda.matmul.allow_tf32 = matmul
+    torch.backends.cudnn.allow_tf32 = cudnn
+
+
+def logged_losses(tr, key: str) -> list:
+    """(epoch, loss) of every batch of ``key`` ("train_batch", "val_batch") a CLI run logged."""
+    rows = [json.loads(line) for line in (Path(tr.experiment.dir) / "metrics.jsonl").read_text().splitlines()]
+    return [(r["epoch"], r["value"]) for r in rows if r.get("metric", "").startswith(key)]
+
+
+def run_cli(ops, root: Path, save: Path, *extra):
+    """``trainer.main`` of piv v1 at b8, crop 256^2, on ``root``, with the counts set to 0 just
+    before and read just after; its printing goes to ``save/stdout.txt``. Returns the finished
+    ``Train``, the counts and the seconds."""
+    import contextlib
+
+    from piv_liteflownet_tpu_torch import trainer
+
+    argv = ["--model", "LiteFlowNet", "--batch_size", str(TRAIN_B), "--crop_size", str(TRAIN_H), str(TRAIN_W),
+            "--training_dataset_root", str(root), "--validation_dataset_root", str(root),
+            "--save", str(save), "--logger_workdir", str(save / "exp"), *extra]
+    save.mkdir(parents=True)
+    torch.cuda.synchronize()
+    reset_counts(ops)
+    t0 = time.perf_counter()
+    with open(save / "stdout.txt", "w") as out, contextlib.redirect_stdout(out):
+        tr = trainer.main(argv)
+    torch.cuda.synchronize()
+    return tr, read_counts(ops), time.perf_counter() - t0
+
+
+def cli_times(tr, steps: int, card: str) -> str:
+    """The step times, host waits and idle gaps a CLI run of ``steps`` steps an epoch logged:
+    medians and maxima without each epoch's first batch, that batch's on its own."""
+    rows = [json.loads(line) for line in (Path(tr.experiment.dir) / "metrics.jsonl").read_text().splitlines()]
+
+    def split(name):
+        vals = [(r["step"], r["value"]) for r in rows if r.get("metric") == "train_" + name]
+        return ([v for st, v in vals if (st - 1) % steps], [v for st, v in vals if (st - 1) % steps == 0])
+
+    (step, step_first), (wait, wait_first), (idle, _) = split("step_ms"), split("wait_ms"), split("idle_ms")
+    if not (len(step) == len(wait) == len(idle) > 0 and len(step_first) == len(wait_first)):
+        raise AssertionError(f"trainer CLI times: {len(step)} steps, {len(wait)} waits, {len(idle)} idle gaps")
+
+    def stat(v):
+        return f"median {np.median(v):.3f}, max {np.max(v):.3f}"
+
+    return (f"{stat(step)} ms/step over {len(step)} steps (each epoch's first {[round(v, 3) for v in step_first]}); "
+            f"host wait for a batch {stat(wait)} ms (each epoch's first {[round(v, 3) for v in wait_first]}); "
+            f"the card idle between steps {stat(idle)} ms, {100 * sum(idle) / (sum(idle) + sum(step)):.2f} % of "
+            f"those steps' span  ({card})")
+
+
+def cli_counts(train_steps: int, val_batches: int, bf16: bool) -> dict:
+    """The launches of ``train_steps`` piv v1 train steps and ``val_batches`` float32 eval
+    forwards: 6/11/6 forward and 6/11 backward a step, 6/11/6 an eval forward."""
+    suffix = "_bf16" if bf16 else ""
+    counts = dict.fromkeys(("corr49", "backwarp", "rgb_warp_norm", "conv_chain", "corr49_bwd", "backwarp_bwd")
+                           + BF16_KERNELS + BF16_BWD_KERNELS, 0)
+    for name, n in (("corr49", 6), ("backwarp", 11), ("rgb_warp_norm", 6)):
+        counts[name + suffix] += n * train_steps
+        counts[name] += n * val_batches
+    counts["corr49_bwd" + suffix] += 6 * train_steps
+    counts["backwarp_bwd" + suffix] += 11 * train_steps
+    return counts
+
+
+def aug_step_ms(dev, batches: list, pipe, bf16: bool, steps: int = 10) -> float:
+    """The piv v1 train step with ``pipe`` inside it on ``batches`` already on the card, in turn,
+    timed as ``Train`` times the CLI's steps (CUDA events around each, no synchronisation
+    between): the median ms of ``steps`` steps after 3."""
+    from piv_liteflownet_tpu_torch.parallel.train_step import TrainState, make_train_step
+    from piv_liteflownet_tpu_torch.training.loss import piv_loss
+    from piv_liteflownet_tpu_torch.training.optim import make_optimizer
+
+    model = build_model("piv", 1, "cudnn")
+    opt = make_optimizer(model, model.cfg.lowest_level)
+    step = make_train_step(model.cfg, piv_loss(), opt, pipeline=pipe,
+                           compute_dtype=torch.bfloat16 if bf16 else None)
+    state, events = TrainState(model, opt), []
+    for i in range(3 + steps):
+        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        start.record()
+        state, _ = step(state, *batches[i % len(batches)], i)
+        end.record()
+        events.append((start, end))
+    torch.cuda.synchronize()
+    return float(np.median([a.elapsed_time(b) for a, b in events[3:]]))
+
+
+def run_data_path(dev, ops, card, f32_step: dict, bf16_step: dict) -> dict:
+    """Phase 6. ``make_dataset_dir`` renders 32 seeded 384^2 pairs on the card into a temporary
+    directory; the card's render and advection are held to the port's CPU render of the same
+    particles (each flow field), and the default train pipeline on a b8 batch of that
+    directory to the CPU's, with the same drawn factors, under torch's default TF32 flags and
+    with every TF32 flag on. Then ``trainer.main`` (piv v1, b8, crop 256^2, the default
+    augmentation in the step): 2 epochs with the counts read around it (``CLI_PATH``: the
+    train path's kernels and the float32 eval forward, never ``conv_chain``), finite losses,
+    checkpoints and ``args.txt``; an unbroken 3-epoch run with backups; ``--resume`` from its
+    ``backup_2`` for epoch 3. Resume: the first epoch-3 loss must equal the unbroken run's bit
+    for bit (same weights, batch order and draws; the forward is deterministic), the other
+    epoch-3 losses within ``RESUME_RTOL``, because the float32 backward is not
+    bit-deterministic on the card (``backwarp_bwd``'s float atomics, cuDNN's wgrad) and Adam
+    turns ulp-level gradient differences at near-zero gradients into lr-sized steps; the
+    2-epoch run against the unbroken one likewise. Then the timed runs, on ``TIME_N`` pairs
+    rendered on the card (24 steps an epoch): 2 epochs in float32 and 2 with ``--bf16``, both
+    without validation (it would run the float32 eval forward, as JAX's trainer does); under
+    ``--bf16`` only the ``_bf16`` forms launch. Prints each timed run's ms/step (CUDA events
+    around each step), the host's wait for each batch and the card's idle time between steps
+    (``cli_times``: without each epoch's first batch, that batch on its own) beside phase 5's
+    fixed-batch steps, the augmentation alone per b8 batch and the same step with the
+    augmentation on the run's batches already on the card, and on one of them
+    (``aug_step_ms``): what the loader's threads cost the step."""
+    from piv_liteflownet_tpu_torch.data import transforms
+    from piv_liteflownet_tpu_torch.data.datasets import PIVData, get_transform
+    from piv_liteflownet_tpu_torch.data.loader import BatchLoader, _collate
+    from piv_liteflownet_tpu_torch.data.piv_gen import FLOW_FIELDS, ParticleImageGen, make_dataset_dir
+
+    h, w = DATA_SIZE
+    with tempfile.TemporaryDirectory() as tmp:
+        root = Path(tmp) / "data"
+        set_tf32(*TF32_FLAGS["torch's defaults"])
+        try:
+            t0 = time.perf_counter()
+            make_dataset_dir(str(root), n=DATA_N, size=DATA_SIZE, seed=0, device=dev)
+            gen_s = time.perf_counter() - t0
+            gen = ParticleImageGen(image_size=DATA_SIZE)
+            gen_err = dict.fromkeys(TF32_FLAGS, 0.0)
+            for i, (name, field) in enumerate(FLOW_FIELDS.items()):
+                flow = field(h, w, device="cpu")
+                parts = gen.sample_particles(torch.Generator().manual_seed(i), "cpu")
+                want = gen.advect(parts, flow)
+                for flags, (mm, cd) in TF32_FLAGS.items():
+                    set_tf32(mm, cd)
+                    got = gen.advect(tuple(p.to(dev) for p in parts), flow)
+                    gen_err[flags] = max(gen_err[flags], *(float((g.cpu() - r).abs().max()) for g, r in zip(got, want)))
+            set_tf32(*TF32_FLAGS["torch's defaults"])
+            if not max(gen_err.values()) <= GEN_ATOL:
+                raise AssertionError(f"generator card vs CPU {gen_err}, tolerance {GEN_ATOL}")
+            train_ds = PIVData(str(root), "train")
+            val_n = len(PIVData(str(root), "val"))
+            n_train = int(0.75 * DATA_N)
+            if (len(train_ds), val_n, train_ds.render_size) != (n_train, DATA_N - n_train, (h // 64 * 64, w // 64 * 64)):
+                raise AssertionError(f"dataset: {len(train_ds)} train, {val_n} val, {train_ds.render_size}")
+            steps, val_batches = n_train // TRAIN_B, -(-val_n // TRAIN_B)  # an epoch's
+            log(f"  make_dataset_dir on the card: {DATA_N} pairs {h}x{w} in {gen_s:.2f} s; render + advection "
+                f"card vs CPU on the same particles, max abs diff {gen_err} (tolerance {GEN_ATOL})")
+
+            (im1, im2), flow = _collate([train_ds[i] for i in range(TRAIN_B)])
+            batch_cpu = [torch.from_numpy(a) for a in (im1, im2, flow)]
+            batch = [a.to(dev) for a in batch_cpu]
+            pipe = get_transform(crop_size=(TRAIN_H, TRAIN_W), mode="train")
+            params = transforms.draw_params(pipe, TRAIN_B, h, w, torch.Generator(device=dev).manual_seed(0))
+            want = transforms.augment({k: v.cpu() for k, v in params.items()}, *batch_cpu, pipe)
+            aug_err = {}
+            for flags, (mm, cd) in TF32_FLAGS.items():
+                set_tf32(mm, cd)
+                got = transforms.augment(params, *batch, pipe)
+                aug_err[flags] = [float((g.cpu() - r).abs().max()) for g, r in zip(got, want)]
+            set_tf32(*TF32_FLAGS["torch's defaults"])
+            if not max(max(e) for e in aug_err.values()) <= AUG_ATOL:
+                raise AssertionError(f"augmentation card vs CPU (img1, img2, flow) {aug_err}, tolerance {AUG_ATOL}")
+            aug_ms = Timer(dev)(lambda: transforms.apply_pipeline(5, *batch, pipe), iters=20)
+            fixed_aug = {False: aug_step_ms(dev, [batch], pipe, False), True: aug_step_ms(dev, [batch], pipe, True)}
+            log(f"  default train pipeline b{TRAIN_B} {h}x{w} -> {TRAIN_H}x{TRAIN_W}, card vs CPU with the same "
+                f"draws, max abs diff (img1, img2, flow) {aug_err} (tolerance {AUG_ATOL}); draw + apply alone "
+                f"{aug_ms:.4f} ms per batch (L2 flushed before each)")
+        finally:
+            set_tf32(False, False)
+
+        cli = Path(tmp) / "cli"
+        two, counts, secs = run_cli(ops, root, cli / "two", "--total_epochs", "2")
+        want_counts = cli_counts(2 * steps, 2 * val_batches, bf16=False)
+        if counts != want_counts:
+            raise AssertionError(f"trainer CLI launches {counts}, expected {want_counts}")
+        names = sorted(p.name for p in (cli / "two").iterdir())
+        for want_name in ("LiteFlowNet_checkpoint", "LiteFlowNet_model_best", "backup_1", "args.txt"):
+            if want_name not in names:
+                raise AssertionError(f"trainer CLI wrote no {want_name}: {names}")
+        two_train, two_val = logged_losses(two, "train_batch"), logged_losses(two, "val_batch")
+        if (len(two_train), len(two_val)) != (2 * steps, 2 * val_batches) or \
+                not all(np.isfinite([v for _, v in two_train + two_val])):
+            raise AssertionError(f"trainer CLI losses {two_train} {two_val}")
+        log(f"  trainer CLI piv v1 b{TRAIN_B} {TRAIN_H}^2, 2 epochs of {steps} steps + validation in {secs:.2f} s: "
+            f"launches {counts}; train losses {[round(v, 6) for _, v in two_train]}, val {[round(v, 6) for _, v in two_val]}")
+
+        unbroken, _, _ = run_cli(ops, root, cli / "unbroken", "--total_epochs", "3", "--backup_frequency", "1")
+        resumed, _, _ = run_cli(ops, root, cli / "resumed", "--total_epochs", "3",
+                                "--resume", str(cli / "unbroken" / "backup_2"))
+        u_train, u_val = logged_losses(unbroken, "train_batch"), logged_losses(unbroken, "val_batch")
+        r_train, r_val = logged_losses(resumed, "train_batch"), logged_losses(resumed, "val_batch")
+        if resumed.args.start_epoch != 3 or {e for e, _ in r_train + r_val} != {3}:
+            raise AssertionError(f"the resumed run started at epoch {resumed.args.start_epoch}: {r_train}")
+
+        def rel(a, b):
+            return max(abs(x - y) / abs(y) for (_, x), (_, y) in zip(a, b))
+
+        e3, v3 = 2 * steps, 2 * val_batches  # where epoch 3 starts in the unbroken run's losses
+        resume_rel = rel(r_train + r_val, u_train[e3:] + u_val[v3:])
+        rerun_rel = rel(two_train + two_val, u_train[:e3] + u_val[:v3])
+        if len(r_train) != steps or r_train[0] != u_train[e3] or two_train[0] != u_train[0]:
+            raise AssertionError(f"a first loss differs: resumed {r_train} vs {u_train[e3:]}, "
+                                 f"rerun {two_train[0]} vs {u_train[0]}")
+        if not max(resume_rel, rerun_rel) <= RESUME_RTOL:
+            raise AssertionError(f"resume: epoch 3 {r_train} {r_val} vs unbroken {u_train[e3:]} {u_val[v3:]}; "
+                                 f"epochs 1-2 {two_train} vs {u_train[:e3]}")
+        log(f"  --resume from backup_2 starts at epoch 3: its first loss {r_train[0][1]!r} equals the unbroken run's "
+            f"bit for bit; epoch 3 within rel {resume_rel:.3e} (train and val; tolerance {RESUME_RTOL}); the 2-epoch "
+            f"run against the unbroken run's epochs 1-2 within rel {rerun_rel:.3e}, first loss equal")
+
+        timed_root = Path(tmp) / "timed"
+        t0 = time.perf_counter()
+        make_dataset_dir(str(timed_root), n=TIME_N, size=DATA_SIZE, seed=1)  # on the card
+        gen_s = time.perf_counter() - t0
+        t_steps = len(PIVData(str(timed_root), "train")) // TRAIN_B
+        log(f"  make_dataset_dir on the card: {TIME_N} pairs {h}x{w} in {gen_s:.2f} s, {t_steps} steps an epoch")
+        resident = [tuple(torch.from_numpy(a).to(dev) for a in (im1, im2, flow)) for (im1, im2), flow in
+                    BatchLoader(PIVData(str(timed_root), "train"), TRAIN_B, num_workers=8, drop_last=True)]
+        own_aug = {bf: aug_step_ms(dev, resident, pipe, bf, steps=2 * (t_steps - 1)) for bf in (False, True)}
+        del resident
+        timed = {}
+        for tag, flags in (("float32", ()), ("bf16", ("--bf16",))):
+            tr, got, secs = run_cli(ops, timed_root, cli / tag, *flags, "--total_epochs", "2",
+                                    "--validation_dataset_mode", "none")
+            want = cli_counts(2 * t_steps, 0, bf16=bool(flags))
+            losses = logged_losses(tr, "train_batch")
+            if got != want or len(losses) != 2 * t_steps or not all(np.isfinite([v for _, v in losses])):
+                raise AssertionError(f"trainer CLI {tag} launches {got} (expected {want}), losses {losses}")
+            log(f"  trainer CLI {tag}, 2 epochs of {t_steps} steps without validation in {secs:.2f} s: launches {got}; "
+                f"first and last train losses {losses[0][1]:.6f} {losses[-1][1]:.6f}")
+            timed[tag] = got
+            fixed = bf16_step if flags else f32_step
+            log(f"  trainer CLI {tag}, 2 epochs of {t_steps} steps (CUDA events around each step, augmentation "
+                f"included): {cli_times(tr, t_steps, card)}")
+            log(f"    beside: the same step with the augmentation on the run's {t_steps} batches already on the card, "
+                f"no loader {own_aug[bool(flags)]:.3f} ms (events, median of {2 * (t_steps - 1)}), on one batch "
+                f"{fixed_aug[bool(flags)]:.3f} ms (events, median of 10); phase 5's fixed batch without "
+                f"augmentation {fixed['ms_step']:.3f} ms/step (host clock, synchronised)")
+    log(f"  augmentation alone {aug_ms:.4f} ms per b{TRAIN_B} batch ({card})")
+    return {"launches": counts, "launches_bf16": timed["bf16"]}
+
+
 #: The parent tree's sources built beside this tree's, those of them that it has (before its own
 #: sources for the bf16 cost volumes, their forms lived in the float32 forms' sources).
 PARENT_SOURCES = ("backwarp.cu", "backwarp_bwd.cu", "corr49.cu", "corr49_bwd.cu", "corr49_bf16.cu",
@@ -2200,6 +2476,10 @@ def main(argv=None) -> int:
     del tr["plain_grads"], tr2["plain_grads"]
     rows.update(time_backward(dev, ops, card))
     rows.update(time_bf16_backward(dev, ops, Timer(dev), card, rows, res.log, parent))
+    log(f"  ({time.perf_counter() - t_start:.1f} s)")
+
+    log("phase 6: data path and trainer CLI")
+    cli = run_data_path(dev, ops, card, tr, tr_bf16)
 
     sources = {"corr49": "corr49.cu", "backwarp": "backwarp.cu", "rgb_warp_norm": "rgb_warp_norm.cu",
                "conv_chain": "conv_chain.cu", "backwarp_bwd": "backwarp_bwd.cu",
@@ -2227,6 +2507,8 @@ def main(argv=None) -> int:
     paths["train step piv v1 256^2 b8"] = tr["launches"]
     paths["train step piv v2 256^2 b8"] = tr2["launches"]
     paths[PATH_TRAIN_V1_BF16] = tr_bf16["launches"]
+    paths[CLI_PATH] = cli["launches"]
+    paths[CLI_PATH_BF16] = cli["launches_bf16"]
     # each kernel's own path: where its launches are counted
     own = {"corr49": PATH_V1, "backwarp": PATH_V1, "rgb_warp_norm": PATH_V1,
            "conv_chain": PATH_V2_CHAIN, "backwarp_bwd": "train step piv v1 256^2 b8",

@@ -1,4 +1,4 @@
-"""JAX params -> the port's torch state dict.
+"""JAX params <-> the port's torch state dict, and upstream ``.paramOnly`` files.
 
 The JAX package keys its params with the torch state-dict names, in JAX
 layouts (``piv_liteflownet_tpu/models/convert.py:to_torch_state_dict``):
@@ -8,16 +8,60 @@ layouts (``piv_liteflownet_tpu/models/convert.py:to_torch_state_dict``):
   copy is spatially flipped ``(kH, kW, 1, C)``; torch's is ``(C, 1, kH, kW)``
   unflipped;
 - biases unchanged.
+
+The upstream repository ships weights as ``.paramOnly`` torch state dicts,
+whose names and layouts are the port's own: ``load_param_only`` checks them.
 """
 
 from __future__ import annotations
 
-from typing import Dict, Mapping
+from typing import Dict, Iterator, Mapping
 
 import numpy as np
 import torch
 
 from piv_liteflownet_tpu_torch.models.liteflownet import ModelConfig, param_shapes
+
+
+def _expected(cfg: ModelConfig) -> Iterator[tuple]:
+    """(name, torch shape) of every tensor of ``cfg``'s state dict."""
+    for spec in param_shapes(cfg):
+        groups = spec["transpose_groups"]
+        yield spec["name"] + ".weight", (spec["cout"], spec["cin"] // (groups or 1), spec["kh"], spec["kw"])
+        if spec["bias"]:
+            yield spec["name"] + ".bias", (spec["cout"],)
+
+
+def load_param_only(cfg: ModelConfig, path: str) -> Dict[str, torch.Tensor]:
+    """A ``.paramOnly`` torch state dict, its names and shapes checked against ``cfg``."""
+    state = torch.load(path, map_location="cpu", weights_only=True)
+    out: Dict[str, torch.Tensor] = {}
+    missing = []
+    for name, shape in _expected(cfg):
+        if name not in state:
+            missing.append(name)
+            continue
+        t = torch.as_tensor(state[name], dtype=torch.float32)
+        if tuple(t.shape) != shape:
+            raise ValueError(f"{name} has shape {tuple(t.shape)}, expected {shape}")
+        out[name] = t.contiguous()
+    if missing:
+        raise KeyError(f"state dict is missing {len(missing)} keys, e.g. {missing[:5]}")
+    return out
+
+
+def to_jax_params(cfg: ModelConfig, state_dict: Mapping[str, torch.Tensor]) -> Dict[str, np.ndarray]:
+    """The inverse of :func:`from_jax_params`: numpy params in JAX layouts."""
+    out: Dict[str, np.ndarray] = {}
+    for spec in param_shapes(cfg):
+        name = spec["name"]
+        w = state_dict[name + ".weight"].detach().float().cpu().numpy()
+        if spec["transpose_groups"] is not None:
+            w = w[:, :, ::-1, ::-1]
+        out[name + ".weight"] = np.ascontiguousarray(np.transpose(w, (2, 3, 1, 0)))
+        if spec["bias"]:
+            out[name + ".bias"] = state_dict[name + ".bias"].detach().float().cpu().numpy()
+    return out
 
 
 def from_jax_params(cfg: ModelConfig, params: Mapping[str, np.ndarray]) -> Dict[str, torch.Tensor]:

@@ -21,6 +21,21 @@ PIV_V2 = ModelConfig(version=2, starting_scale=10, lowest_level=2, rgb_mean=PIV_
 CONFIGS = {("hui", 1): HUI_V1, ("hui", 2): HUI_V2, ("piv", 1): PIV_V1, ("piv", 2): PIV_V2}
 
 
+def model_config_registry():
+    """Name -> ``ModelConfig`` factory, whose signatures the trainer reflects into its
+    ``--model_*`` flags."""
+
+    def LiteFlowNet(starting_scale=10.0, lowest_level=1, rgb_mean=list(PIV_MEAN_V1)):
+        return ModelConfig(version=1, starting_scale=starting_scale, lowest_level=lowest_level,
+                           rgb_mean=tuple(rgb_mean))
+
+    def LiteFlowNet2(starting_scale=10.0, lowest_level=2, rgb_mean=list(PIV_MEAN_V2)):
+        return ModelConfig(version=2, starting_scale=starting_scale, lowest_level=lowest_level,
+                           rgb_mean=tuple(rgb_mean))
+
+    return {"LiteFlowNet": LiteFlowNet, "LiteFlowNet2": LiteFlowNet2}
+
+
 def resolve_device(device=None) -> torch.device:
     """``None`` means ``cuda``. Raises if a CUDA device is asked for and none is available."""
     dev = torch.device("cuda" if device is None else device)

@@ -25,6 +25,18 @@ def f32_convs() -> Iterator[None]:
         torch.backends.cudnn.allow_tf32 = before
 
 
+@contextlib.contextmanager
+def f32_matmuls() -> Iterator[None]:
+    """Run CUDA matmuls in full float32 (TF32 off) and restore the caller's setting, through
+    the legacy ``torch.backends.cuda.matmul.allow_tf32`` flag, as :func:`f32_convs` does."""
+    before = torch.backends.cuda.matmul.allow_tf32
+    torch.backends.cuda.matmul.allow_tf32 = False
+    try:
+        yield
+    finally:
+        torch.backends.cuda.matmul.allow_tf32 = before
+
+
 def leaky_relu(x: torch.Tensor) -> torch.Tensor:
     """``LeakyReLU(0.1)`` (port of ``leaky_relu``)."""
     return F.leaky_relu(x, NEGATIVE_SLOPE)

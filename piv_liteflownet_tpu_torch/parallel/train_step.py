@@ -7,6 +7,12 @@ or tensors; they are moved to the model's device. The step updates the
 model and the optimizer in place and returns the loss and EPE as 0-dim
 tensors on the device, so that the caller chooses when to read them back.
 
+With ``pipeline`` (``data/transforms.py:Pipeline``) the step first augments
+and crops the batch on the model's device, as JAX ``parallel/train_step.py:87-89``
+does. Its random factors come from the step's ``rng`` argument, a seed or a
+``torch.Generator``, never from a global generator; a seed makes a generator
+on the model's device.
+
 ``compute_dtype=torch.bfloat16`` is mixed precision, as in JAX
 ``parallel/train_step.py:56-74``: the float32 master params are cast to bf16
 at the forward boundary with ``.to`` (differentiable, so autograd returns
@@ -16,8 +22,8 @@ outputs go back to float32 before the loss, and the loss and the optimizer
 state stay float32. Not ``torch.autocast``, which keeps some ops in float32
 and casts per op: another function than JAX's.
 
-Not ported yet (ROADMAP.md): ``mesh`` (data-parallel over several cards),
-``pipeline`` (on-device augmentation) and ``remat``.
+Not ported yet (ROADMAP.md): ``mesh`` (data-parallel over several cards) and
+``remat``.
 """
 
 from __future__ import annotations
@@ -25,9 +31,11 @@ from __future__ import annotations
 import dataclasses
 from typing import Callable, Dict
 
+import numpy as np
 import torch
 from torch.func import functional_call
 
+from piv_liteflownet_tpu_torch.data.transforms import apply_pipeline
 from piv_liteflownet_tpu_torch.inference import to_nchw
 from piv_liteflownet_tpu_torch.models.liteflownet import KERNEL_OPS, LiteFlowNet, ModelConfig, Ops
 from piv_liteflownet_tpu_torch.ops.nn import f32_convs
@@ -53,6 +61,12 @@ def _not_ported(**options) -> None:
             raise NotImplementedError(f"make_train_step({name}=...) is not ported yet; see ROADMAP.md")
 
 
+def _on(a, device: torch.device) -> torch.Tensor:
+    """An NHWC numpy array or tensor as a float32 tensor on ``device``."""
+    t = a if isinstance(a, torch.Tensor) else torch.from_numpy(np.asarray(a, np.float32))
+    return t.to(device=device, dtype=torch.float32)
+
+
 def _forward(model: LiteFlowNet, x1, x2, ops: Ops, compute_dtype):
     """The train forward, in ``compute_dtype`` (None: the params' float32) with float32 outputs."""
     if compute_dtype is None:
@@ -66,28 +80,35 @@ def _forward(model: LiteFlowNet, x1, x2, ops: Ops, compute_dtype):
 def make_train_step(cfg: ModelConfig, loss_obj, optimizer: torch.optim.Optimizer,
                     ops: Ops = KERNEL_OPS, mesh=None, pipeline=None, remat: bool = False,
                     compute_dtype=None) -> Callable:
-    """Build ``step(state, img1, img2, target) -> (state, {"loss", "epe"})``.
+    """Build ``step(state, img1, img2, target, rng=None) -> (state, {"loss", "epe"})``.
 
-    ``ops`` picks the kernels (default) or their plain versions (``PLAIN_OPS``). The
-    forward and backward convs run in full float32 whatever torch's TF32 flags say.
+    With ``pipeline`` the step augments the batch on the model's device first, drawing from
+    ``rng`` (a seed or a ``torch.Generator``; required). ``ops`` picks the kernels (default)
+    or their plain versions (``PLAIN_OPS``). The forward and backward convs run in full
+    float32 whatever torch's TF32 flags say.
     ``compute_dtype``: None or ``torch.float32`` (the float32 step) or ``torch.bfloat16``
     (mixed precision, the module docstring); the kernels take no other dtype. The step
     carries it as ``step.compute_dtype`` (``torch.float32`` for the float32 step).
     """
-    _not_ported(mesh=mesh, pipeline=pipeline, remat=remat)
+    _not_ported(mesh=mesh, remat=remat)
     if compute_dtype == torch.float32:
         compute_dtype = None
     if compute_dtype not in (None, torch.bfloat16):
         raise NotImplementedError(f"make_train_step(compute_dtype={compute_dtype}): the kernels take "
                                   "float32 and bfloat16 only; see ROADMAP.md")
 
-    def step(state: TrainState, img1, img2, target):
+    def step(state: TrainState, img1, img2, target, rng=None):
         if state.optimizer is not optimizer:
             raise ValueError("the state's optimizer is not the one this step was built with")
         model = state.model
         if model.cfg != cfg:
             raise ValueError(f"the state's model has config {model.cfg}, the step {cfg}")
         device = next(model.parameters()).device
+        if pipeline is not None:
+            if rng is None:
+                raise ValueError("a step with a pipeline needs rng, a seed or a torch.Generator")
+            img1, img2, target = apply_pipeline(rng, *(_on(a, device) for a in (img1, img2, target)),
+                                                pipeline)
         x1, x2, t = (to_nchw(a, device) for a in (img1, img2, target))
         optimizer.zero_grad(set_to_none=True)
         with f32_convs():

@@ -30,6 +30,24 @@ OPTIMIZERS = {name: getattr(torch.optim, name) for name in (
     "Adam", "AdamW", "SGD", "RMSprop", "Adagrad", "Adadelta", "Adamax", "NAdam", "RAdam")}
 #: Optimizers of the JAX package (optax) that ``torch.optim`` lacks; queued in ROADMAP.md.
 NOT_PORTED = ("Lion", "Lamb", "Yogi", "Novograd")
+#: Each optimizer of the JAX package's registry with its own arguments and their defaults,
+#: as that registry names them: the trainer reflects these signatures into its
+#: ``--optimizer_*`` flags and passes the set ones to :func:`make_optimizer`.
+OPTIMIZER_ARGS = {
+    "Adam": lambda betas=(0.9, 0.999), eps=1e-8, amsgrad=False: None,
+    "AdamW": lambda betas=(0.9, 0.999), eps=1e-8, amsgrad=False: None,
+    "SGD": lambda momentum=0.0, dampening=0.0, nesterov=False: None,
+    "RMSprop": lambda alpha=0.99, eps=1e-8, momentum=0.0, centered=False: None,
+    "Adagrad": lambda eps=1e-10: None,
+    "Adadelta": lambda rho=0.9, eps=1e-6: None,
+    "Adamax": lambda betas=(0.9, 0.999), eps=1e-8: None,
+    "NAdam": lambda betas=(0.9, 0.999), eps=1e-8: None,
+    "RAdam": lambda betas=(0.9, 0.999), eps=1e-8: None,
+    "Lion": lambda betas=(0.9, 0.99): None,
+    "Lamb": lambda betas=(0.9, 0.999), eps=1e-6: None,
+    "Yogi": lambda betas=(0.9, 0.999), eps=1e-3: None,
+    "Novograd": lambda betas=(0.9, 0.25), eps=1e-8: None,
+}
 
 
 def param_group_labels(names: Iterable[str], lowest_level: int) -> Dict[str, str]:

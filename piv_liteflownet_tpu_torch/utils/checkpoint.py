@@ -5,6 +5,10 @@ Port of ``piv_liteflownet_tpu/utils/checkpoint.py`` with its file names:
 on an improvement, ``backup_<epoch>`` periodically, and a ``.meta.json``
 beside each. A checkpoint is one file holding ``{"model": state dict,
 "optimizer": state dict, "epoch", "best_epe", "step"}``.
+
+``save_params_npz``/``load_params_npz`` exchange bare weights with the JAX
+package: an ``.npz`` of its params (torch names, JAX layouts), converted by
+``models/convert.py``.
 """
 
 from __future__ import annotations
@@ -14,6 +18,7 @@ import os
 import shutil
 from typing import Any, Dict, Optional
 
+import numpy as np
 import torch
 
 
@@ -49,3 +54,19 @@ def load_metadata(path: str) -> Optional[Dict[str, Any]]:
         with open(meta) as f:
             return json.load(f)
     return None
+
+
+def save_params_npz(cfg, state_dict, path: str) -> None:
+    """Write a model's state dict as the JAX package's ``.npz`` of params (JAX layouts)."""
+    from piv_liteflownet_tpu_torch.models.convert import to_jax_params
+
+    np.savez(path, **to_jax_params(cfg, state_dict))
+
+
+def load_params_npz(cfg, path: str) -> Dict[str, torch.Tensor]:
+    """The state dict of ``cfg``'s model from an ``.npz`` of JAX params (``save_params_npz``,
+    or the JAX package's own)."""
+    from piv_liteflownet_tpu_torch.models.convert import from_jax_params
+
+    with np.load(path) as f:
+        return from_jax_params(cfg, {k: f[k] for k in f.files})

@@ -4,6 +4,7 @@ Port of ``piv_liteflownet_tpu/utils/metrics.py``. It keeps the call surface
 of the comet-ml experiment the reference trainer used (``log_metric``,
 ``log_current_epoch``, ``log_parameters``, ``set_name``, ``get_key``) and
 writes ``<workdir>/<key>/metrics.jsonl`` and ``parameters.json``.
+``ExistingExperiment`` appends to the experiment of a given key.
 """
 
 from __future__ import annotations
@@ -19,7 +20,7 @@ class Experiment:
     """Local JSON-lines experiment logger; ``previous_experiment`` appends to an existing key."""
 
     def __init__(self, workdir: str = "./work/experiments", project_name: str = "piv-flownet",
-                 previous_experiment: Optional[str] = None):
+                 previous_experiment: Optional[str] = None, **_ignored):
         self.project = project_name
         self.key = previous_experiment or uuid.uuid4().hex[:16]
         self.dir = os.path.join(workdir, self.key)
@@ -56,3 +57,12 @@ class Experiment:
 
     def close(self) -> None:
         self._f.close()
+
+
+class ExistingExperiment(Experiment):
+    """Go on logging into the experiment ``previous_experiment`` (its key)."""
+
+    def __init__(self, previous_experiment: str, workdir: str = "./work/experiments",
+                 project_name: str = "piv-flownet"):
+        super().__init__(workdir=workdir, project_name=project_name,
+                         previous_experiment=previous_experiment)

@@ -300,8 +300,8 @@ def test_set_group_lrs_and_unported_optimizers():
             toptim.make_optimizer(model, 2, optimizer=name)
     with pytest.raises(ValueError, match="unknown optimizer"):
         toptim.make_optimizer(model, 2, optimizer="Sgdx")
-    for option in ({"mesh": object()}, {"pipeline": object()}, {"remat": True},
-                   {"compute_dtype": torch.float16}):
+    # make_train_step(pipeline=...) is ported (tests/test_torch_trainer_cli.py)
+    for option in ({"mesh": object()}, {"remat": True}, {"compute_dtype": torch.float16}):
         with pytest.raises(NotImplementedError, match="ROADMAP.md"):
             make_train_step(model.cfg, tloss.hui_loss(), opt, **option)
 
