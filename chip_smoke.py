@@ -13,9 +13,10 @@ also with the NetE conv stacks through the ``conv_chain`` kernel
 through the port's entry points (``piv_liteflownet``,
 ``hui_liteflownet``, ``estimate``, ``write_flow``/``read_flow``;
 ``make_optimizer``, ``make_train_step``, ``Train``, ``resume``; the data path
-and ``python -m piv_liteflownet_tpu_torch.trainer``'s ``main``) at full width
-with seeded random weights, in six phases; each raises on failure, and then
-the script exits non-zero without the final line.
+and ``python -m piv_liteflownet_tpu_torch.trainer``'s ``main``; ``run``,
+``evaluate`` and the pack CLI's ``main``) at full width with seeded random
+weights and the tracked trained ones, in seven phases; each raises on
+failure, and then the script exits non-zero without the final line.
 
 1. Card and build: the card's name and power limit (nvidia-smi), and the
    ``nvcc`` build of ``piv_liteflownet_tpu_torch/csrc/*.cu`` with its seconds
@@ -195,6 +196,26 @@ the script exits non-zero without the final line.
    augmentation on the run's batches already on the card (no loader), on
    one of them, phase 5's fixed-batch step, and the augmentation alone per
    batch.
+7. Ingest and the inference CLIs (``run_ingest``): libpivio built by g++
+   from the port's copy of ``pivio.cpp`` (its version, seconds, and whether
+   zlib's header was found); its decode of the evalset PNGs bit-equal to
+   PIL's values, its ``.flo`` codec bit-equal to ``utils/flow_io.py``, the
+   evalset packed into a ``.pivseq`` read back bit-equal. ``evaluate`` in
+   process with the trained weights on the evalset: piv v1 float32 and bf16,
+   cuDNN and chain, and v2 float32, each AEE within 1e-5 px of
+   ``run_trained``'s for the same path and inside its limits of JAX's, the
+   launches exactly one estimate's. ``run`` over 64 1024^2 pairs rendered on
+   the card and written as 8-bit PNGs, packed by the pack CLI: piv v1 with
+   the trained weights in float32 cuDNN and bf16 chain through PIL threads,
+   ``--native_io`` and the ``.pivseq``, 3 runs each in turns (pairs/s, the
+   card's idle time between batches), the three routes' files bit-equal and
+   each run's launches exact, beside ``estimate`` alone on a resident batch
+   and each ingest route alone; ``-b 1.0 -c 1.0`` (JAX's names, flows
+   bit-equal to the plain path's at batch 1) and ``-b 0.8 1.2`` (file count).
+   ``trainer --native_io`` on phase 6's timed directory in float32 and bf16:
+   phase 6's launches, the first loss bit-equal to the Python loader's run,
+   the rest within rel 1e-3, its step times, waits and idle gaps beside
+   phase 6's.
 
 The line before the last is ``{"kernels": [...]}`` (``launches``: per call of
 each kernel's own path, the piv v1 estimate for the forward kernels, the
@@ -202,7 +223,8 @@ piv v2 chain estimate for ``conv_chain``, the piv v1 train step for the
 backward ones, the piv v1 bf16 estimate for the forward ``_bf16`` forms,
 the piv v1 bf16 chain estimate for ``conv_chain_bf16``, the piv v1 bf16
 train step for the backward ones; ``launches_per_train_step`` of the float32 piv v1 step and
-``launches_by_path`` for all twelve C entry points, the trainer CLI's two runs among the paths); the last line is
+``launches_by_path`` for all twelve C entry points, the trainer CLI's runs, ``evaluate``'s and ``run``'s
+among the paths); the last line is
 ``{"ok": true, "device": {...}}``. Without a CUDA device it exits 2 and
 prints no result. It needs no argument; ``--parent DIR`` adds the parent's
 warp, rgb warp-norm and cost-volume kernels to phases 2, 4 and 5.
@@ -213,6 +235,7 @@ from __future__ import annotations
 import ctypes
 import json
 import math
+import os
 import subprocess
 import sys
 import tempfile
@@ -1109,7 +1132,7 @@ def pair_epes(flow: np.ndarray, gt: np.ndarray) -> np.ndarray:
     return np.array([float(np.linalg.norm(f - g, axis=-1).mean()) for f, g in zip(flow.astype(np.float32), gt)])
 
 
-def run_trained(dev, ops, card) -> None:
+def run_trained(dev, ops, card) -> dict:
     """piv v1 and v2 with the tracked trained weights (``run.load_weights``, through
     ``from_jax_params``) on the four evalset pairs (256^2, flows up to 2.5 px), through each path:
     float32 with cuDNN convs and the kernels, float32 through the plain ops on the card, float32
@@ -1118,7 +1141,8 @@ def run_trained(dev, ops, card) -> None:
     |flow difference| against the float32 kernel path, and per level the largest |flow * sf| that
     reached ``rgb_warp_norm``'s kernel (a hook on ``_launch`` for this phase only). Raises if the
     kernels differ from the plain ops, the card from the CPU, or the float32 chain from cuDNN by more
-    than ``TRAINED_ATOL``, or an AEE lies beyond its limit around JAX's (``TRAINED``)."""
+    than ``TRAINED_ATOL``, or an AEE lies beyond its limit around JAX's (``TRAINED``). Returns the
+    AEE of each path on the card, keyed ``(version, "float32 cudnn")`` and so on."""
     from types import SimpleNamespace
 
     from piv_liteflownet_tpu_torch import piv_liteflownet
@@ -1139,7 +1163,7 @@ def run_trained(dev, ops, card) -> None:
         reach[h] = max(reach.get(h, 0.0), float(flow.float().nan_to_num(0.0).abs().max()))
         launch(img1, img2, flow, out)
 
-    failures = []
+    failures, aees = [], {}
     for version, (path, jax_f32, tol_f32, jax_bf16, tol_bf16) in TRAINED.items():
         state, _ = load_weights(SimpleNamespace(params=str(root / path), model="piv"), config("piv", version))
         flows, reaches = {}, {}
@@ -1169,6 +1193,7 @@ def run_trained(dev, ops, card) -> None:
         for key, flow in flows.items():
             epes = pair_epes(flow.cpu().numpy(), gt[:len(flow)])
             aee = float(epes.mean())
+            aees[version, key] = aee
             jax, tol = ((jax_f32, tol_f32) if key.startswith("float32") and "CPU" not in key
                         else (jax_bf16, tol_bf16) if key.startswith("bf16") else (None, None))
             vs = f", JAX {jax:.5f} (|diff| {abs(aee - jax):.5f}, limit {tol:g})" if jax is not None else ""
@@ -1184,6 +1209,7 @@ def run_trained(dev, ops, card) -> None:
     log(f"  trained weights: {time.perf_counter() - t0:.1f} s  ({card})")
     if failures:
         raise AssertionError(f"trained weights: {failures}")
+    return aees
 
 
 # -- phase 4: times -------------------------------------------------------------------------
@@ -2247,9 +2273,8 @@ def aug_step_ms(dev, batches: list, pipe, bf16: bool, steps: int = 10) -> float:
     return float(np.median([a.elapsed_time(b) for a, b in events[3:]]))
 
 
-def run_data_path(dev, ops, card, f32_step: dict, bf16_step: dict) -> dict:
-    """Phase 6. ``make_dataset_dir`` renders 32 seeded 384^2 pairs on the card into a temporary
-    directory; the card's render and advection are held to the port's CPU render of the same
+def run_data_path(dev, ops, card, f32_step: dict, bf16_step: dict, tmp: Path) -> dict:
+    """Phase 6. ``make_dataset_dir`` renders 32 seeded 384^2 pairs on the card into ``tmp``; the card's render and advection are held to the port's CPU render of the same
     particles (each flow field), and the default train pipeline on a b8 batch of that
     directory to the CPU's, with the same drawn factors, under torch's default TF32 flags and
     with every TF32 flag on. Then ``trainer.main`` (piv v1, b8, crop 256^2, the default
@@ -2269,134 +2294,533 @@ def run_data_path(dev, ops, card, f32_step: dict, bf16_step: dict) -> dict:
     (``cli_times``: without each epoch's first batch, that batch on its own) beside phase 5's
     fixed-batch steps, the augmentation alone per b8 batch and the same step with the
     augmentation on the run's batches already on the card, and on one of them
-    (``aug_step_ms``): what the loader's threads cost the step."""
+    (``aug_step_ms``): what the loader's threads cost the step. Returns the launches of the
+    2-epoch run and, for phase 7, the timed runs' directory, steps an epoch, launches, losses
+    and times."""
     from piv_liteflownet_tpu_torch.data import transforms
     from piv_liteflownet_tpu_torch.data.datasets import PIVData, get_transform
     from piv_liteflownet_tpu_torch.data.loader import BatchLoader, _collate
     from piv_liteflownet_tpu_torch.data.piv_gen import FLOW_FIELDS, ParticleImageGen, make_dataset_dir
 
     h, w = DATA_SIZE
-    with tempfile.TemporaryDirectory() as tmp:
-        root = Path(tmp) / "data"
-        set_tf32(*TF32_FLAGS["torch's defaults"])
-        try:
-            t0 = time.perf_counter()
-            make_dataset_dir(str(root), n=DATA_N, size=DATA_SIZE, seed=0, device=dev)
-            gen_s = time.perf_counter() - t0
-            gen = ParticleImageGen(image_size=DATA_SIZE)
-            gen_err = dict.fromkeys(TF32_FLAGS, 0.0)
-            for i, (name, field) in enumerate(FLOW_FIELDS.items()):
-                flow = field(h, w, device="cpu")
-                parts = gen.sample_particles(torch.Generator().manual_seed(i), "cpu")
-                want = gen.advect(parts, flow)
-                for flags, (mm, cd) in TF32_FLAGS.items():
-                    set_tf32(mm, cd)
-                    got = gen.advect(tuple(p.to(dev) for p in parts), flow)
-                    gen_err[flags] = max(gen_err[flags], *(float((g.cpu() - r).abs().max()) for g, r in zip(got, want)))
-            set_tf32(*TF32_FLAGS["torch's defaults"])
-            if not max(gen_err.values()) <= GEN_ATOL:
-                raise AssertionError(f"generator card vs CPU {gen_err}, tolerance {GEN_ATOL}")
-            train_ds = PIVData(str(root), "train")
-            val_n = len(PIVData(str(root), "val"))
-            n_train = int(0.75 * DATA_N)
-            if (len(train_ds), val_n, train_ds.render_size) != (n_train, DATA_N - n_train, (h // 64 * 64, w // 64 * 64)):
-                raise AssertionError(f"dataset: {len(train_ds)} train, {val_n} val, {train_ds.render_size}")
-            steps, val_batches = n_train // TRAIN_B, -(-val_n // TRAIN_B)  # an epoch's
-            log(f"  make_dataset_dir on the card: {DATA_N} pairs {h}x{w} in {gen_s:.2f} s; render + advection "
-                f"card vs CPU on the same particles, max abs diff {gen_err} (tolerance {GEN_ATOL})")
-
-            (im1, im2), flow = _collate([train_ds[i] for i in range(TRAIN_B)])
-            batch_cpu = [torch.from_numpy(a) for a in (im1, im2, flow)]
-            batch = [a.to(dev) for a in batch_cpu]
-            pipe = get_transform(crop_size=(TRAIN_H, TRAIN_W), mode="train")
-            params = transforms.draw_params(pipe, TRAIN_B, h, w, torch.Generator(device=dev).manual_seed(0))
-            want = transforms.augment({k: v.cpu() for k, v in params.items()}, *batch_cpu, pipe)
-            aug_err = {}
+    root = tmp / "data"
+    set_tf32(*TF32_FLAGS["torch's defaults"])
+    try:
+        t0 = time.perf_counter()
+        make_dataset_dir(str(root), n=DATA_N, size=DATA_SIZE, seed=0, device=dev)
+        gen_s = time.perf_counter() - t0
+        gen = ParticleImageGen(image_size=DATA_SIZE)
+        gen_err = dict.fromkeys(TF32_FLAGS, 0.0)
+        for i, (name, field) in enumerate(FLOW_FIELDS.items()):
+            flow = field(h, w, device="cpu")
+            parts = gen.sample_particles(torch.Generator().manual_seed(i), "cpu")
+            want = gen.advect(parts, flow)
             for flags, (mm, cd) in TF32_FLAGS.items():
                 set_tf32(mm, cd)
-                got = transforms.augment(params, *batch, pipe)
-                aug_err[flags] = [float((g.cpu() - r).abs().max()) for g, r in zip(got, want)]
-            set_tf32(*TF32_FLAGS["torch's defaults"])
-            if not max(max(e) for e in aug_err.values()) <= AUG_ATOL:
-                raise AssertionError(f"augmentation card vs CPU (img1, img2, flow) {aug_err}, tolerance {AUG_ATOL}")
-            aug_ms = Timer(dev)(lambda: transforms.apply_pipeline(5, *batch, pipe), iters=20)
-            fixed_aug = {False: aug_step_ms(dev, [batch], pipe, False), True: aug_step_ms(dev, [batch], pipe, True)}
-            log(f"  default train pipeline b{TRAIN_B} {h}x{w} -> {TRAIN_H}x{TRAIN_W}, card vs CPU with the same "
-                f"draws, max abs diff (img1, img2, flow) {aug_err} (tolerance {AUG_ATOL}); draw + apply alone "
-                f"{aug_ms:.4f} ms per batch (L2 flushed before each)")
-        finally:
-            set_tf32(False, False)
+                got = gen.advect(tuple(p.to(dev) for p in parts), flow)
+                gen_err[flags] = max(gen_err[flags], *(float((g.cpu() - r).abs().max()) for g, r in zip(got, want)))
+        set_tf32(*TF32_FLAGS["torch's defaults"])
+        if not max(gen_err.values()) <= GEN_ATOL:
+            raise AssertionError(f"generator card vs CPU {gen_err}, tolerance {GEN_ATOL}")
+        train_ds = PIVData(str(root), "train")
+        val_n = len(PIVData(str(root), "val"))
+        n_train = int(0.75 * DATA_N)
+        if (len(train_ds), val_n, train_ds.render_size) != (n_train, DATA_N - n_train, (h // 64 * 64, w // 64 * 64)):
+            raise AssertionError(f"dataset: {len(train_ds)} train, {val_n} val, {train_ds.render_size}")
+        steps, val_batches = n_train // TRAIN_B, -(-val_n // TRAIN_B)  # an epoch's
+        log(f"  make_dataset_dir on the card: {DATA_N} pairs {h}x{w} in {gen_s:.2f} s; render + advection "
+            f"card vs CPU on the same particles, max abs diff {gen_err} (tolerance {GEN_ATOL})")
 
-        cli = Path(tmp) / "cli"
-        two, counts, secs = run_cli(ops, root, cli / "two", "--total_epochs", "2")
-        want_counts = cli_counts(2 * steps, 2 * val_batches, bf16=False)
-        if counts != want_counts:
-            raise AssertionError(f"trainer CLI launches {counts}, expected {want_counts}")
-        names = sorted(p.name for p in (cli / "two").iterdir())
-        for want_name in ("LiteFlowNet_checkpoint", "LiteFlowNet_model_best", "backup_1", "args.txt"):
-            if want_name not in names:
-                raise AssertionError(f"trainer CLI wrote no {want_name}: {names}")
-        two_train, two_val = logged_losses(two, "train_batch"), logged_losses(two, "val_batch")
-        if (len(two_train), len(two_val)) != (2 * steps, 2 * val_batches) or \
-                not all(np.isfinite([v for _, v in two_train + two_val])):
-            raise AssertionError(f"trainer CLI losses {two_train} {two_val}")
-        log(f"  trainer CLI piv v1 b{TRAIN_B} {TRAIN_H}^2, 2 epochs of {steps} steps + validation in {secs:.2f} s: "
-            f"launches {counts}; train losses {[round(v, 6) for _, v in two_train]}, val {[round(v, 6) for _, v in two_val]}")
+        (im1, im2), flow = _collate([train_ds[i] for i in range(TRAIN_B)])
+        batch_cpu = [torch.from_numpy(a) for a in (im1, im2, flow)]
+        batch = [a.to(dev) for a in batch_cpu]
+        pipe = get_transform(crop_size=(TRAIN_H, TRAIN_W), mode="train")
+        params = transforms.draw_params(pipe, TRAIN_B, h, w, torch.Generator(device=dev).manual_seed(0))
+        want = transforms.augment({k: v.cpu() for k, v in params.items()}, *batch_cpu, pipe)
+        aug_err = {}
+        for flags, (mm, cd) in TF32_FLAGS.items():
+            set_tf32(mm, cd)
+            got = transforms.augment(params, *batch, pipe)
+            aug_err[flags] = [float((g.cpu() - r).abs().max()) for g, r in zip(got, want)]
+        set_tf32(*TF32_FLAGS["torch's defaults"])
+        if not max(max(e) for e in aug_err.values()) <= AUG_ATOL:
+            raise AssertionError(f"augmentation card vs CPU (img1, img2, flow) {aug_err}, tolerance {AUG_ATOL}")
+        aug_ms = Timer(dev)(lambda: transforms.apply_pipeline(5, *batch, pipe), iters=20)
+        fixed_aug = {False: aug_step_ms(dev, [batch], pipe, False), True: aug_step_ms(dev, [batch], pipe, True)}
+        log(f"  default train pipeline b{TRAIN_B} {h}x{w} -> {TRAIN_H}x{TRAIN_W}, card vs CPU with the same "
+            f"draws, max abs diff (img1, img2, flow) {aug_err} (tolerance {AUG_ATOL}); draw + apply alone "
+            f"{aug_ms:.4f} ms per batch (L2 flushed before each)")
+    finally:
+        set_tf32(False, False)
 
-        unbroken, _, _ = run_cli(ops, root, cli / "unbroken", "--total_epochs", "3", "--backup_frequency", "1")
-        resumed, _, _ = run_cli(ops, root, cli / "resumed", "--total_epochs", "3",
-                                "--resume", str(cli / "unbroken" / "backup_2"))
-        u_train, u_val = logged_losses(unbroken, "train_batch"), logged_losses(unbroken, "val_batch")
-        r_train, r_val = logged_losses(resumed, "train_batch"), logged_losses(resumed, "val_batch")
-        if resumed.args.start_epoch != 3 or {e for e, _ in r_train + r_val} != {3}:
-            raise AssertionError(f"the resumed run started at epoch {resumed.args.start_epoch}: {r_train}")
+    cli = tmp / "cli"
+    two, counts, secs = run_cli(ops, root, cli / "two", "--total_epochs", "2")
+    want_counts = cli_counts(2 * steps, 2 * val_batches, bf16=False)
+    if counts != want_counts:
+        raise AssertionError(f"trainer CLI launches {counts}, expected {want_counts}")
+    names = sorted(p.name for p in (cli / "two").iterdir())
+    for want_name in ("LiteFlowNet_checkpoint", "LiteFlowNet_model_best", "backup_1", "args.txt"):
+        if want_name not in names:
+            raise AssertionError(f"trainer CLI wrote no {want_name}: {names}")
+    two_train, two_val = logged_losses(two, "train_batch"), logged_losses(two, "val_batch")
+    if (len(two_train), len(two_val)) != (2 * steps, 2 * val_batches) or \
+            not all(np.isfinite([v for _, v in two_train + two_val])):
+        raise AssertionError(f"trainer CLI losses {two_train} {two_val}")
+    log(f"  trainer CLI piv v1 b{TRAIN_B} {TRAIN_H}^2, 2 epochs of {steps} steps + validation in {secs:.2f} s: "
+        f"launches {counts}; train losses {[round(v, 6) for _, v in two_train]}, val {[round(v, 6) for _, v in two_val]}")
 
-        def rel(a, b):
-            return max(abs(x - y) / abs(y) for (_, x), (_, y) in zip(a, b))
+    unbroken, _, _ = run_cli(ops, root, cli / "unbroken", "--total_epochs", "3", "--backup_frequency", "1")
+    resumed, _, _ = run_cli(ops, root, cli / "resumed", "--total_epochs", "3",
+                            "--resume", str(cli / "unbroken" / "backup_2"))
+    u_train, u_val = logged_losses(unbroken, "train_batch"), logged_losses(unbroken, "val_batch")
+    r_train, r_val = logged_losses(resumed, "train_batch"), logged_losses(resumed, "val_batch")
+    if resumed.args.start_epoch != 3 or {e for e, _ in r_train + r_val} != {3}:
+        raise AssertionError(f"the resumed run started at epoch {resumed.args.start_epoch}: {r_train}")
 
-        e3, v3 = 2 * steps, 2 * val_batches  # where epoch 3 starts in the unbroken run's losses
-        resume_rel = rel(r_train + r_val, u_train[e3:] + u_val[v3:])
-        rerun_rel = rel(two_train + two_val, u_train[:e3] + u_val[:v3])
-        if len(r_train) != steps or r_train[0] != u_train[e3] or two_train[0] != u_train[0]:
-            raise AssertionError(f"a first loss differs: resumed {r_train} vs {u_train[e3:]}, "
-                                 f"rerun {two_train[0]} vs {u_train[0]}")
-        if not max(resume_rel, rerun_rel) <= RESUME_RTOL:
-            raise AssertionError(f"resume: epoch 3 {r_train} {r_val} vs unbroken {u_train[e3:]} {u_val[v3:]}; "
-                                 f"epochs 1-2 {two_train} vs {u_train[:e3]}")
-        log(f"  --resume from backup_2 starts at epoch 3: its first loss {r_train[0][1]!r} equals the unbroken run's "
-            f"bit for bit; epoch 3 within rel {resume_rel:.3e} (train and val; tolerance {RESUME_RTOL}); the 2-epoch "
-            f"run against the unbroken run's epochs 1-2 within rel {rerun_rel:.3e}, first loss equal")
+    def rel(a, b):
+        return max(abs(x - y) / abs(y) for (_, x), (_, y) in zip(a, b))
 
-        timed_root = Path(tmp) / "timed"
-        t0 = time.perf_counter()
-        make_dataset_dir(str(timed_root), n=TIME_N, size=DATA_SIZE, seed=1)  # on the card
-        gen_s = time.perf_counter() - t0
-        t_steps = len(PIVData(str(timed_root), "train")) // TRAIN_B
-        log(f"  make_dataset_dir on the card: {TIME_N} pairs {h}x{w} in {gen_s:.2f} s, {t_steps} steps an epoch")
-        resident = [tuple(torch.from_numpy(a).to(dev) for a in (im1, im2, flow)) for (im1, im2), flow in
-                    BatchLoader(PIVData(str(timed_root), "train"), TRAIN_B, num_workers=8, drop_last=True)]
-        own_aug = {bf: aug_step_ms(dev, resident, pipe, bf, steps=2 * (t_steps - 1)) for bf in (False, True)}
-        del resident
-        timed = {}
-        for tag, flags in (("float32", ()), ("bf16", ("--bf16",))):
-            tr, got, secs = run_cli(ops, timed_root, cli / tag, *flags, "--total_epochs", "2",
-                                    "--validation_dataset_mode", "none")
-            want = cli_counts(2 * t_steps, 0, bf16=bool(flags))
-            losses = logged_losses(tr, "train_batch")
-            if got != want or len(losses) != 2 * t_steps or not all(np.isfinite([v for _, v in losses])):
-                raise AssertionError(f"trainer CLI {tag} launches {got} (expected {want}), losses {losses}")
-            log(f"  trainer CLI {tag}, 2 epochs of {t_steps} steps without validation in {secs:.2f} s: launches {got}; "
-                f"first and last train losses {losses[0][1]:.6f} {losses[-1][1]:.6f}")
-            timed[tag] = got
-            fixed = bf16_step if flags else f32_step
-            log(f"  trainer CLI {tag}, 2 epochs of {t_steps} steps (CUDA events around each step, augmentation "
-                f"included): {cli_times(tr, t_steps, card)}")
-            log(f"    beside: the same step with the augmentation on the run's {t_steps} batches already on the card, "
-                f"no loader {own_aug[bool(flags)]:.3f} ms (events, median of {2 * (t_steps - 1)}), on one batch "
-                f"{fixed_aug[bool(flags)]:.3f} ms (events, median of 10); phase 5's fixed batch without "
-                f"augmentation {fixed['ms_step']:.3f} ms/step (host clock, synchronised)")
+    e3, v3 = 2 * steps, 2 * val_batches  # where epoch 3 starts in the unbroken run's losses
+    resume_rel = rel(r_train + r_val, u_train[e3:] + u_val[v3:])
+    rerun_rel = rel(two_train + two_val, u_train[:e3] + u_val[:v3])
+    if len(r_train) != steps or r_train[0] != u_train[e3] or two_train[0] != u_train[0]:
+        raise AssertionError(f"a first loss differs: resumed {r_train} vs {u_train[e3:]}, "
+                             f"rerun {two_train[0]} vs {u_train[0]}")
+    if not max(resume_rel, rerun_rel) <= RESUME_RTOL:
+        raise AssertionError(f"resume: epoch 3 {r_train} {r_val} vs unbroken {u_train[e3:]} {u_val[v3:]}; "
+                             f"epochs 1-2 {two_train} vs {u_train[:e3]}")
+    log(f"  --resume from backup_2 starts at epoch 3: its first loss {r_train[0][1]!r} equals the unbroken run's "
+        f"bit for bit; epoch 3 within rel {resume_rel:.3e} (train and val; tolerance {RESUME_RTOL}); the 2-epoch "
+        f"run against the unbroken run's epochs 1-2 within rel {rerun_rel:.3e}, first loss equal")
+
+    timed_root = tmp / "timed"
+    t0 = time.perf_counter()
+    make_dataset_dir(str(timed_root), n=TIME_N, size=DATA_SIZE, seed=1)  # on the card
+    gen_s = time.perf_counter() - t0
+    t_steps = len(PIVData(str(timed_root), "train")) // TRAIN_B
+    log(f"  make_dataset_dir on the card: {TIME_N} pairs {h}x{w} in {gen_s:.2f} s, {t_steps} steps an epoch")
+    resident = [tuple(torch.from_numpy(a).to(dev) for a in (im1, im2, flow)) for (im1, im2), flow in
+                BatchLoader(PIVData(str(timed_root), "train"), TRAIN_B, num_workers=8, drop_last=True)]
+    own_aug = {bf: aug_step_ms(dev, resident, pipe, bf, steps=2 * (t_steps - 1)) for bf in (False, True)}
+    del resident
+    timed = {}
+    for tag, flags in (("float32", ()), ("bf16", ("--bf16",))):
+        tr, got, secs = run_cli(ops, timed_root, cli / tag, *flags, "--total_epochs", "2",
+                                "--validation_dataset_mode", "none")
+        want = cli_counts(2 * t_steps, 0, bf16=bool(flags))
+        losses = logged_losses(tr, "train_batch")
+        if got != want or len(losses) != 2 * t_steps or not all(np.isfinite([v for _, v in losses])):
+            raise AssertionError(f"trainer CLI {tag} launches {got} (expected {want}), losses {losses}")
+        log(f"  trainer CLI {tag}, 2 epochs of {t_steps} steps without validation in {secs:.2f} s: launches {got}; "
+            f"first and last train losses {losses[0][1]:.6f} {losses[-1][1]:.6f}")
+        timed[tag] = {"launches": got, "losses": losses, "times": cli_times(tr, t_steps, card)}
+        fixed = bf16_step if flags else f32_step
+        log(f"  trainer CLI {tag}, 2 epochs of {t_steps} steps (CUDA events around each step, augmentation "
+            f"included): {timed[tag]['times']}")
+        log(f"    beside: the same step with the augmentation on the run's {t_steps} batches already on the card, "
+            f"no loader {own_aug[bool(flags)]:.3f} ms (events, median of {2 * (t_steps - 1)}), on one batch "
+            f"{fixed_aug[bool(flags)]:.3f} ms (events, median of 10); phase 5's fixed batch without "
+            f"augmentation {fixed['ms_step']:.3f} ms/step (host clock, synchronised)")
     log(f"  augmentation alone {aug_ms:.4f} ms per b{TRAIN_B} batch ({card})")
-    return {"launches": counts, "launches_bf16": timed["bf16"]}
+    return {"launches": counts, "launches_bf16": timed["bf16"]["launches"], "timed": timed,
+            "timed_root": timed_root, "t_steps": t_steps}
+
+
+# -- phase 7: ingest and the inference CLIs ------------------------------------------------------
+
+INGEST_N, INGEST_SIZE = 64, (1024, 1024)  # run's directory: 64 pairs rendered on the card
+RUN_B = 2  # run's default --batch_size
+EVAL_ATOL = 1e-5  # px: evaluate's AEE against run_trained's for the same path (the same batch of 4)
+#: (version, dtype, conv_impl) of evaluate's runs, their run_trained key, launches per estimate at 256^2
+EVAL_CASES = [(1, "float32", "cudnn", (6, 11, 6, 0)), (1, "float32", "chain", (6, 11, 6, 12)),
+              (1, "bf16", "cudnn", (6, 11, 6, 0)), (1, "bf16", "chain", (6, 11, 6, 12)),
+              (2, "float32", "cudnn", (5, 9, 5, 0))]
+#: run's flags, launches per estimate and runs of each route (the median is reported): float32 is
+#: card-bound and its 9 runs in one call spread 1.3 %, so 2 runs a route; bf16 spreads up to 40 %
+RUN_DTYPES = {"float32 cudnn": ((), (6, 11, 6, 0), 2),
+              "bf16 chain": (("--bf16", "--conv_impl", "chain"), (6, 11, 6, 18), 3)}
+
+
+def forward_counts(per_estimate, calls: int, bf16: bool) -> dict:
+    """The launches of ``calls`` estimates, each launching ``per_estimate`` of corr49, backwarp,
+    rgb_warp_norm and conv_chain, in the bf16 forms when ``bf16``."""
+    counts = dict.fromkeys(("corr49", "backwarp", "rgb_warp_norm", "conv_chain", "corr49_bwd", "backwarp_bwd")
+                           + BF16_KERNELS + BF16_BWD_KERNELS, 0)
+    for name, n in zip(FWD_KERNELS, per_estimate):
+        counts[name + ("_bf16" if bf16 else "")] = n * calls
+    return counts
+
+
+def quiet(fn, *args):
+    """``fn(*args)`` with its printing captured; returns (result, what it printed)."""
+    import contextlib
+    import io
+
+    out = io.StringIO()
+    with contextlib.redirect_stdout(out):
+        result = fn(*args)
+    return result, out.getvalue()
+
+
+class EstimateEvents:
+    """Within ``with``: ``module.estimate`` records a CUDA event on the current stream before
+    and after each call, into ``events`` as (start, end); the module's own function comes
+    back on exit. The main path holds no timing of its own."""
+
+    def __init__(self, module):
+        self.module = module
+        self.events: list = []
+
+    def __enter__(self):
+        inner = self.own = self.module.estimate
+
+        def estimate(*args, **kwargs):
+            start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+            start.record()
+            out = inner(*args, **kwargs)
+            end.record()
+            self.events.append((start, end))
+            return out
+
+        self.module.estimate = estimate
+        return self
+
+    def __exit__(self, *exc):
+        self.module.estimate = self.own
+
+
+def idle_share(events) -> tuple:
+    """The card's time between one ``estimate``'s end and the next one's start over a run (the
+    gaps between each (start, end) pair of CUDA events and the next; a batch's flows are
+    copied back in the gap after it), as (ms, share of the span)."""
+    torch.cuda.synchronize()
+    gaps = sum(max(0.0, e.elapsed_time(s)) for (_, e), (s, _) in zip(events, events[1:]))
+    span = events[0][0].elapsed_time(events[-1][1])
+    return gaps, gaps / span if span > 0 else 0.0
+
+
+def check_decode(native, pivseq, tmp: Path) -> None:
+    """The evalset's PNGs through ``image_read`` bit-equal to PIL's values over 255; its ``.flo``
+    files through the native codec bit-equal to ``utils/flow_io.py``; a ``.pivseq`` packed from
+    it read back bit-equal, by Python and by C."""
+    from piv_liteflownet_tpu_torch.run import load_image
+    from piv_liteflownet_tpu_torch.utils.flow_io import read_flow, write_flow
+
+    root = Path(__file__).resolve().parent / EVALSET
+    pngs, flos = sorted(root.glob("*_img[12].png")), sorted(root.glob("*_flow.flo"))
+    if native.has_png():
+        for p in pngs:
+            if not np.array_equal(native.image_read(str(p)), load_image(str(p))):
+                raise AssertionError(f"image_read({p.name}) differs from PIL's")
+    for f in flos:
+        flow = read_flow(str(f))
+        if not np.array_equal(native.flo_read(str(f)), flow):
+            raise AssertionError(f"flo_read({f.name}) differs from read_flow")
+        a, b = tmp / "native.flo", tmp / "python.flo"
+        native.flo_write(str(a), flow)
+        write_flow(flow, str(b))
+        if a.read_bytes() != b.read_bytes():
+            raise AssertionError(f"flo_write({f.name}) differs from write_flow's bytes")
+    seq = pivseq.pack_directory(str(root), str(tmp / "evalset.pivseq"))
+    reader = pivseq.PivseqReader(seq)
+    for i, name in enumerate(reader.names):
+        want = load_image(str(root / name))
+        if not (np.array_equal(reader.frame(i), want)
+                and np.array_equal(native.seq_read_frame(seq, i, reader.h, reader.w), want)):
+            raise AssertionError(f".pivseq frame {name} differs from PIL's")
+    log(f"  decode: {len(pngs)} evalset PNGs through image_read {'bit-equal to PIL' if native.has_png() else 'not checked (no PNG decoder)'}; "
+        f"{len(flos)} .flo through the native codec bit-equal to flow_io (read and write); the evalset packed "
+        f"({reader.n_frames} frames {reader.h}x{reader.w}x{reader.c} {reader.np_dtype.__name__}) read back bit-equal")
+
+
+def run_evaluate(ops, card, trained_aees: dict) -> dict:
+    """``evaluate.main`` in-process with the tracked trained weights on the evalset, per
+    ``EVAL_CASES``: its AEE within ``EVAL_ATOL`` of ``run_trained``'s for the same path and
+    within ``TRAINED``'s limits of JAX's; its launches exactly one estimate's (4 pairs of one
+    shape: one batch). Returns the launches by path."""
+    from piv_liteflownet_tpu_torch import evaluate
+
+    root = Path(__file__).resolve().parent
+    paths, failures = {}, []
+    for version, dtype, impl, per_estimate in EVAL_CASES:
+        path, jax_f32, tol_f32, jax_bf16, tol_bf16 = TRAINED[version]
+        argv = ["-i", str(root / EVALSET), "-m", "piv", "-v", str(version), "--params", str(root / path),
+                "--conv_impl", impl] + (["--bf16"] if dtype == "bf16" else [])
+        torch.cuda.synchronize()
+        reset_counts(ops)
+        t0 = time.perf_counter()
+        agg, printed = quiet(evaluate.main, argv)
+        torch.cuda.synchronize()
+        secs = time.perf_counter() - t0
+        counts = read_counts(ops)
+        want = forward_counts(per_estimate, 1, dtype == "bf16")
+        key = f"{dtype} {impl}"
+        ref = trained_aees[version, key]
+        jax, tol = (jax_f32, tol_f32) if dtype == "float32" else (jax_bf16, tol_bf16)
+        last = json.loads(printed.strip().splitlines()[-1])
+        ok = (counts == want and last == {"aggregate": agg} and agg["pairs"] == 4
+              and abs(agg["aee"] - ref) <= EVAL_ATOL and abs(agg["aee"] - jax) <= tol)
+        log(f"  evaluate piv v{version} {key}: AEE {agg['aee']:.6f} px (run_trained {ref:.6f}, |diff| "
+            f"{abs(agg['aee'] - ref):.2e}, limit {EVAL_ATOL:g}; JAX {jax}, limit {tol}), worst pair "
+            f"{agg['worst_pair_epe']:.5f}, {secs:.2f} s in-process (model build included), launches "
+            f"{ {k: v for k, v in counts.items() if v} }")
+        if not ok:
+            failures.append(f"v{version} {key}: AEE {agg['aee']} vs {ref} (JAX {jax}), launches {counts} "
+                            f"(expected {want}), last line {last}")
+        paths[f"evaluate piv v{version} {key} evalset 4x256^2"] = counts
+    if failures:
+        raise AssertionError(f"evaluate: {failures}")
+    log(f"  ({card})")
+    return paths
+
+
+def ingest_rate(loader) -> float:
+    """Pairs a second through ``loader`` alone, its batches dropped."""
+    t0, n = time.perf_counter(), 0
+    for _, names in loader:
+        n += len(names)
+    if hasattr(loader, "close"):
+        loader.close()
+    return n / (time.perf_counter() - t0)
+
+
+def same_files(a: Path, b: Path) -> list:
+    """The names of ``a``'s files whose bytes differ from ``b``'s, or that ``b`` lacks."""
+    import filecmp
+
+    names = sorted(p.name for p in a.iterdir())
+    if names != sorted(p.name for p in b.iterdir()):
+        return ["file names differ"]
+    return [n for n in names if not filecmp.cmp(a / n, b / n, shallow=False)]
+
+
+def flow_dir(out: Path) -> Path:
+    """The ``flow`` directory ``run`` wrote under ``out`` for its one input."""
+    (net,) = out.iterdir()
+    (sub,) = net.iterdir()
+    return sub / "flow"
+
+
+def run_cli_routes(dev, ops, card, tmp: Path) -> dict:
+    """``run``'s directory path over ``INGEST_N`` 1024^2 pairs rendered on the card and written
+    as 8-bit PNGs, three ways: PIL threads, ``--native_io`` (libpivio's PNG decoder) and the
+    directory packed into a ``.pivseq`` by the pack CLI (with ``--native_io``); piv v1 with the
+    trained v1 weights in float32 with cuDNN and in bf16 with the chain. Each route's files
+    bit-equal to the others', the launches of each run exact, ``RUN_DTYPES``' runs of each route in
+    turns (pairs/s: the median), beside ``estimate`` alone on the run's first batch resident on the
+    card (synchronised calls, and 10 calls back to back) and each ingest route alone; the
+    card's idle share between batches of each run. Then
+    ``-b 1.0 -c 1.0`` (JAX's names; flows bit-equal to the plain path's at batch 1) and
+    ``-b 0.8 1.2`` (file count). Returns the launches by path."""
+    import shutil
+    from types import SimpleNamespace
+
+    from piv_liteflownet_tpu_torch import piv_liteflownet
+    from piv_liteflownet_tpu_torch import run as infer_cli
+    from piv_liteflownet_tpu_torch.data import pivseq
+    from piv_liteflownet_tpu_torch.data.datasets import Run
+    from piv_liteflownet_tpu_torch.data.loader import BatchLoader, native_loader_for
+    from piv_liteflownet_tpu_torch.data.piv_gen import make_dataset_dir
+    from piv_liteflownet_tpu_torch.inference import estimate
+    from piv_liteflownet_tpu_torch.models.factory import config
+    from piv_liteflownet_tpu_torch.utils.flow_io import read_flow
+
+    root = Path(__file__).resolve().parent
+    weights = str(root / TRAINED[1][0])
+    frames = tmp / "frames"
+    t0 = time.perf_counter()
+    make_dataset_dir(str(frames), n=INGEST_N, size=INGEST_SIZE, seed=7, device=dev, write_manifest=False)
+    gen_s = time.perf_counter() - t0
+    seq = tmp / "frames.pivseq"
+    t0 = time.perf_counter()
+    _, printed = quiet(pivseq.main, [str(frames), str(seq)])
+    pack_s = time.perf_counter() - t0
+    h, w = INGEST_SIZE
+    log(f"  {INGEST_N} pairs {h}x{w} rendered on the card and written as 8-bit PNGs in {gen_s:.2f} s; "
+        f"pack CLI in {pack_s:.2f} s: {printed.strip()}")
+
+    alone = {"PIL threads": ingest_rate(BatchLoader(Run(str(frames), is_pair=True), RUN_B, num_workers=4)),
+             "native PNG": ingest_rate(native_loader_for(Run(str(frames), is_pair=True), RUN_B)),
+             ".pivseq": ingest_rate(native_loader_for(pivseq.PivseqRun(str(seq), is_pair=True), RUN_B))}
+    log(f"  ingest alone at {h}x{w} b{RUN_B} (pairs/s, host clock, os.cpu_count() {os.cpu_count()}): "
+        + ", ".join(f"{k} {v:.2f}" for k, v in alone.items()) + f"  ({card})")
+
+    routes = {"PIL threads": [str(frames)], "native PNG": [str(frames), "--native_io"],
+              ".pivseq": [str(seq), "--native_io"]}
+    batches = -(-INGEST_N // RUN_B)
+    state, _ = infer_cli.load_weights(SimpleNamespace(params=weights, model="piv"), config("piv", 1))
+    firsts = sorted(frames.glob("*_img1.png"))[:RUN_B]
+    t1 = torch.from_numpy(np.stack([infer_cli.load_image(str(p)) for p in firsts])).to(dev)
+    t2 = torch.from_numpy(np.stack([infer_cli.load_image(str(p).replace("_img1", "_img2")) for p in firsts])).to(dev)
+    paths, failures = {}, []
+    for dtype, (flags, per_estimate, reps) in RUN_DTYPES.items():
+        model = piv_liteflownet(state, version=1, device=dev, conv_impl="chain" if "chain" in dtype else "cudnn")
+        if "bf16" in dtype:
+            model = model.to(torch.bfloat16)
+        ms = []
+        for _ in range(13):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            estimate(model, t1, t2, tensor=True)
+            torch.cuda.synchronize()
+            ms.append((time.perf_counter() - t0) * 1e3)
+        est = float(np.median(ms[3:]))
+        t0 = time.perf_counter()
+        for _ in range(10):  # back to back: the host may launch ahead of the card
+            estimate(model, t1, t2, tensor=True)
+        torch.cuda.synchronize()
+        ahead = (time.perf_counter() - t0) * 1e3 / 10
+        del model
+        rates, idle, ref = {r: [] for r in routes}, {r: [] for r in routes}, None
+        for rep in range(reps):
+            for route, inp in routes.items():
+                out = tmp / "run" / f"{dtype.replace(' ', '_')}_{rep}_{route.replace(' ', '_').strip('.')}"
+                argv = ["-m", "piv", "-v", "1", "-p", "--params", weights, "-o", str(out), "-i", *inp, *flags]
+                torch.cuda.synchronize()
+                reset_counts(ops)
+                with EstimateEvents(infer_cli) as timed:
+                    (stats,), _ = quiet(infer_cli.main, argv)
+                torch.cuda.synchronize()
+                counts = read_counts(ops)
+                want = forward_counts(per_estimate, batches, "bf16" in dtype)
+                loader = "native" if "--native_io" in inp else "python"
+                if counts != want or stats.pairs != INGEST_N or stats.loader != loader:
+                    failures.append(f"run {dtype} {route}: launches {counts} (expected {want}), {stats.pairs} "
+                                    f"pairs, loader {stats.loader}")
+                rates[route].append(stats.pairs / stats.seconds)
+                idle[route].append(idle_share(timed.events))
+                if rep == 0:
+                    paths[f"run piv v1 {dtype} {h}^2 b{RUN_B} x{INGEST_N}, {route}"] = counts
+                if ref is None:
+                    ref = flow_dir(out)
+                    flows = [read_flow(str(p)) for p in sorted(ref.iterdir())[:2]]
+                    if len(list(ref.iterdir())) != INGEST_N or not all(
+                            f.shape == (h, w, 2) and np.isfinite(f).all() for f in flows):
+                        failures.append(f"run {dtype}: bad output in {ref}")
+                    continue
+                if rep == 0:
+                    diff = same_files(flow_dir(out), ref)
+                    if diff:
+                        failures.append(f"run {dtype} {route}: files differ from PIL threads' {diff[:3]}")
+                shutil.rmtree(out)
+        shutil.rmtree(ref.parents[2])
+        log(f"  run piv v1 {dtype} b{RUN_B} over {INGEST_N} {h}x{w} pairs, {reps} runs a route in turns "
+            f"(pairs/s, median [all]; the card idle between estimates, the flows' copy back included, ms and "
+            f"share of the span): "
+            + "; ".join(f"{r} {np.median(v):.2f} {[round(x, 2) for x in v]}, idle "
+                        f"{[round(g, 1) for g, _ in idle[r]]} ms {[f'{100 * sh:.1f} %' for _, sh in idle[r]]}"
+                        for r, v in rates.items())
+            + f"; estimate alone on the run's first batch resident on the card {est:.3f} ms "
+              f"({1e3 * RUN_B / est:.2f} pairs/s, median of 10 synchronised calls), {ahead:.3f} ms back to back "
+              f"({1e3 * RUN_B / ahead:.2f} pairs/s, 10 calls)  ({card}, os.cpu_count() {os.cpu_count()})")
+        log(f"    the three routes wrote the same {INGEST_N} file names, bit-equal .flo files")
+    del t1, t2
+
+    mod = tmp / "mod"
+    argv = ["-m", "piv", "-v", "1", "--params", weights]
+    (one,), _ = quiet(infer_cli.main, argv + ["-o", str(mod / "one"), "-i", str(frames), "-n", "8",
+                                                "-b", "1.0", "-c", "1.0"])
+    quiet(infer_cli.main, argv + ["-o", str(mod / "plain"), "-i", str(frames), "-p", "-n", "4", "--batch_size", "1"])
+    want_names = []
+    for a in infer_cli.mod_images(str(frames), 0, 8)[:-1]:
+        prefix, suffix = Path(a).name.rsplit("_", 1)
+        want_names.append(f"{prefix}_100_100_{suffix.rsplit('.', 1)[0]}_out.flo")
+    got_names = [Path(p).name for p in one]
+    if got_names != want_names:
+        failures.append(f"run -b 1.0 -c 1.0 wrote {got_names}, JAX's pattern gives {want_names}")
+    plain_dir = flow_dir(mod / "plain")
+    same = 0
+    for p in one:
+        name = Path(p).name
+        if name.endswith("_img1_out.flo"):
+            ref = plain_dir / name.replace("_100_100_img1", "_img1")
+            if not np.array_equal(read_flow(p), read_flow(str(ref))):
+                failures.append(f"run -b 1.0 -c 1.0: {name} differs from the plain path's {ref.name}")
+            same += 1
+    (two,), _ = quiet(infer_cli.main, argv + ["-o", str(mod / "two"), "-i", str(frames), "-n", "4",
+                                                "-b", "0.8", "1.2"])
+    two_names = sorted(Path(p).name for p in two)
+    if len(two_names) != 2 * 3 or not all(("_080_100_" in n) or ("_120_100_" in n) for n in two_names):
+        failures.append(f"run -b 0.8 1.2 -n 4 wrote {two_names}")
+    log(f"  run -b 1.0 -c 1.0 -n 8: {len(got_names)} files named as JAX's pattern ({got_names[0]}, ...), the {same} "
+        f"img1->img2 pairs bit-equal to the plain path's at batch 1; -b 0.8 1.2 -n 4: {len(two_names)} files")
+    if failures:
+        raise AssertionError(f"run: {failures}")
+    return paths
+
+
+def native_batches_on_the_card(dev, root: Path) -> int:
+    """One shuffled epoch of ``root``'s train split through ``native_train_loader_for`` (its
+    pinned ring, fenced by the copies) and through ``BatchLoader``, each to the card by
+    ``PrefetchLoader``: every batch equal bit for bit. Returns the batches compared."""
+    from piv_liteflownet_tpu_torch.data.datasets import PIVData
+    from piv_liteflownet_tpu_torch.data.loader import BatchLoader, PrefetchLoader, native_train_loader_for
+
+    ds = PIVData(str(root), "train")
+    native = native_train_loader_for(ds, TRAIN_B, num_workers=8, shuffle=True, seed=1, drop_last=True)
+    python = BatchLoader(ds, TRAIN_B, num_workers=8, shuffle=True, seed=1, drop_last=True)
+    n = 0
+    for ((a1, a2), af), ((b1, b2), bf) in zip(PrefetchLoader(native, dev, fence=native.fence),
+                                              PrefetchLoader(python, dev)):
+        if not (a1.device.type == torch.device(dev).type and torch.equal(a1, b1) and torch.equal(a2, b2) and torch.equal(af, bf)):
+            raise AssertionError(f"trainer --native_io: batch {n} on the card differs from the Python loader's")
+        n += 1
+    if n != len(python):
+        raise AssertionError(f"trainer --native_io: {n} batches compared of {len(python)}")
+    return n
+
+
+def run_native_trainer(dev, ops, card, cli: dict, tmp: Path) -> dict:
+    """``trainer.main --native_io`` on phase 6's timed directory (crop 256^2 b8, 2 epochs, no
+    validation), float32 and bf16: an epoch of its batches on the card bit-equal to the Python
+    loader's; launches as phase 6's Python-loader runs and every loss bit-equal to theirs (the
+    same batch order, decoded values, draws and weights; the backward's float atomics have
+    given the same sums in every call so far); its step times, host waits and idle gaps beside
+    phase 6's."""
+    from piv_liteflownet_tpu_torch.data.native import NativeTrainLoader
+
+    n = native_batches_on_the_card(dev, cli["timed_root"])
+    log(f"  trainer data: {n} shuffled b{TRAIN_B} batches through libpivio's pinned ring to the card, bit-equal "
+        f"to the Python loader's")
+    paths, failures = {}, []
+    for tag, flags in (("float32", ()), ("bf16", ("--bf16",))):
+        tr, got, secs = run_cli(ops, cli["timed_root"], tmp / "native_cli" / tag, "--native_io", *flags,
+                                "--total_epochs", "2", "--validation_dataset_mode", "none")
+        python = cli["timed"][tag]
+        losses = logged_losses(tr, "train_batch")
+        same = sum(a == b for a, b in zip(losses, python["losses"]))
+        if not isinstance(tr.loaders["train"], NativeTrainLoader) or got != python["launches"] \
+                or len(losses) != len(python["losses"]) or same != len(losses):
+            failures.append(f"{tag}: loader {type(tr.loaders['train']).__name__}, launches {got} vs "
+                            f"{python['launches']}, {same} of {len(losses)} losses bit-equal, {losses[:3]} vs "
+                            f"{python['losses'][:3]}")
+        log(f"  trainer CLI --native_io {tag}, 2 epochs of {cli['t_steps']} steps in {secs:.2f} s: launches as the "
+            f"Python loader's; {same} of {len(losses)} losses bit-equal to the Python loader's (first "
+            f"{losses[0][1]!r})")
+        log(f"    native: {cli_times(tr, cli['t_steps'], card)}")
+        log(f"    Python loader (phase 6, this call): {python['times']}")
+        paths[f"trainer CLI --native_io piv v1 {tag} 256^2 b8"] = got
+    if failures:
+        raise AssertionError(f"trainer --native_io: {failures}")
+    return paths
+
+
+def run_ingest(dev, ops, card, trained_aees: dict, cli: dict, tmp: Path) -> dict:
+    """Phase 7: build libpivio, check its decoders and codec, then ``evaluate``, ``run``'s
+    three ingest routes and ``trainer --native_io`` (see each). Returns the launches by path."""
+    from piv_liteflownet_tpu_torch.data import native, pivseq
+
+    res = native.build()
+    native.load()
+    log(f"  libpivio: {res.compiler}; {'built' if res.rebuilt else 'up to date'} in {res.seconds:.2f} s -> "
+        f"{res.path.name}; zlib's header {'found' if native.zlib_header_found() else 'missing'}, PNG decoder "
+        f"{'in' if res.png else 'compiled out (PNG datasets take the Python loader)'}")
+    check_decode(native, pivseq, tmp)
+    paths = run_evaluate(ops, card, trained_aees)
+    paths.update(run_cli_routes(dev, ops, card, tmp))
+    paths.update(run_native_trainer(dev, ops, card, cli, tmp))
+    return paths
+
 
 
 #: The parent tree's sources built beside this tree's, those of them that it has (before its own
@@ -2460,7 +2884,7 @@ def main(argv=None) -> int:
     log("  bf16 inference:")
     sl_bf16 = run_bf16_slice(dev, ops, sl["models"])
     log("  trained weights:")
-    run_trained(dev, ops, card)
+    trained = run_trained(dev, ops, card)
     log(f"  ({time.perf_counter() - t_start:.1f} s)")
 
     log("phase 4: times")
@@ -2478,8 +2902,14 @@ def main(argv=None) -> int:
     rows.update(time_bf16_backward(dev, ops, Timer(dev), card, rows, res.log, parent))
     log(f"  ({time.perf_counter() - t_start:.1f} s)")
 
-    log("phase 6: data path and trainer CLI")
-    cli = run_data_path(dev, ops, card, tr, tr_bf16)
+    with tempfile.TemporaryDirectory() as tmp:
+        log("phase 6: data path and trainer CLI")
+        cli = run_data_path(dev, ops, card, tr, tr_bf16, Path(tmp))
+        log(f"  ({time.perf_counter() - t_start:.1f} s)")
+        log("phase 7: ingest and the inference CLIs")
+        t7 = time.perf_counter()
+        ingest_paths = run_ingest(dev, ops, card, trained, cli, Path(tmp))
+        log(f"  phase 7 {time.perf_counter() - t7:.1f} s ({time.perf_counter() - t_start:.1f} s)")
 
     sources = {"corr49": "corr49.cu", "backwarp": "backwarp.cu", "rgb_warp_norm": "rgb_warp_norm.cu",
                "conv_chain": "conv_chain.cu", "backwarp_bwd": "backwarp_bwd.cu",
@@ -2509,6 +2939,7 @@ def main(argv=None) -> int:
     paths[PATH_TRAIN_V1_BF16] = tr_bf16["launches"]
     paths[CLI_PATH] = cli["launches"]
     paths[CLI_PATH_BF16] = cli["launches_bf16"]
+    paths.update(ingest_paths)
     # each kernel's own path: where its launches are counted
     own = {"corr49": PATH_V1, "backwarp": PATH_V1, "rgb_warp_norm": PATH_V1,
            "conv_chain": PATH_V2_CHAIN, "backwarp_bwd": "train step piv v1 256^2 b8",

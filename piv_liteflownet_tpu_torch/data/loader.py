@@ -3,43 +3,112 @@
 
 ``BatchLoader`` decodes and collates numpy batches on a thread pool, in the
 JAX package's order (the shuffle stream is ``np.random.default_rng(seed +
-epoch)``). ``PrefetchLoader`` moves each batch onto the device ahead of its
-use: on a card it copies from pinned host memory on a side CUDA stream, and
-the consumer's stream waits on that copy before it reads the batch.
+epoch)``). ``native_loader_for`` and ``native_train_loader_for`` give the C++
+loaders of ``data/native.py`` (``libpivio``) where their decoders apply; they
+yield the same batches as host tensors in a ring of pinned slots.
+``PrefetchLoader`` moves each batch onto the device ahead of its use: on a
+card it copies from pinned host memory on a side CUDA stream, and the
+consumer's stream waits on that copy before it reads the batch.
 Augmentation is not done here: it runs on the device inside the train step
 (``data/transforms.py``).
 """
 
 from __future__ import annotations
 
+import os
 import queue
 import threading
 from concurrent.futures import ThreadPoolExecutor
-from typing import Iterable, Iterator
+from typing import Callable, Iterable, Iterator, Optional
 
 import numpy as np
 import torch
 
 
+#: formats the C++ decoders handle (PNG 8/16-bit colour types 0/2/3/4/6 not interlaced,
+#: baseline TIFF uncompressed or PackBits, PNM); a dataset with any other goes to the
+#: Python loader's PIL threads.
+NATIVE_EXTS = {"pgm", "ppm", "png", "tif", "tiff"}
+
+
+def _native_threads(num_workers: int) -> int:
+    return max(2, min(num_workers, 4 * (os.cpu_count() or 1)))
+
+
+def _native_exts() -> set:
+    from piv_liteflownet_tpu_torch.data import native
+
+    return NATIVE_EXTS if native.has_png() else NATIVE_EXTS - {"png"}
+
+
 def native_loader_for(dataset, batch_size: int, num_workers: int = 4):
-    """The C++ batch loader of the native-I/O slice."""
-    raise NotImplementedError("native I/O (data/native.py, libpivio) is not ported yet; see ROADMAP.md")
+    """``libpivio``'s loader over an inference dataset, or None where its decoders do not
+    apply.
+
+    A ``data.pivseq.PivseqRun`` gets a ``NativeSeqLoader``; a ``Run`` whose files are all in
+    ``NATIVE_EXTS`` (PNG only where the library was built with zlib) and whose first frame
+    decodes gets a ``NativeBatchLoader`` at that frame's size; other datasets get None and
+    take the Python loader. Raises if the library cannot be built or loaded.
+    """
+    from piv_liteflownet_tpu_torch.data import native
+
+    native.load()
+    if hasattr(dataset, "index_pairs") and hasattr(dataset, "reader"):
+        return native.NativeSeqLoader(dataset, batch_size, threads=max(2, num_workers))
+    pairs = getattr(dataset, "pairs", None)
+    if not pairs:
+        return None
+    exts = {p.rsplit(".", 1)[-1].lower() for pair in pairs for p in pair}
+    if not exts <= _native_exts():
+        return None
+    try:
+        probe = native.image_read(pairs[0][0])
+    except IOError:
+        return None
+    return native.NativeBatchLoader(pairs, batch_size, probe.shape[0], probe.shape[1],
+                                    threads=_native_threads(num_workers))
 
 
 def native_train_loader_for(dataset, batch_size: int, num_workers: int = 4, shuffle: bool = True,
                             seed: int = 0, drop_last: bool = True):
-    """The C++ training loader of the native-I/O slice."""
-    raise NotImplementedError("native I/O (data/native.py, libpivio) is not ported yet; see ROADMAP.md")
+    """``libpivio``'s training loader over a dataset of ``(img1, img2, flo)`` path triplets
+    (``PIVData.samples``), or None where it does not apply (no such triplets, or a frame
+    format the decoders reject). Its batches and their order equal ``BatchLoader``'s with the
+    same ``shuffle``, ``seed`` and ``drop_last``. Raises if the library cannot be built or
+    loaded."""
+    from piv_liteflownet_tpu_torch.data import native
+
+    native.load()
+    samples = getattr(dataset, "samples", None)
+    if not samples or len(samples[0]) != 3:
+        return None
+    exts = {p.rsplit(".", 1)[-1].lower() for s in samples for p in s[:2]}
+    if not exts <= _native_exts():
+        return None
+    try:
+        probe = native.image_read(samples[0][0])
+        fprobe = native.flo_read(samples[0][2])
+    except IOError:
+        return None
+    return native.NativeTrainLoader(
+        samples, batch_size, probe.shape[0], probe.shape[1], fprobe.shape[0], fprobe.shape[1],
+        threads=_native_threads(num_workers), shuffle=shuffle, seed=seed, drop_last=drop_last)
 
 
 def _collate(samples):
     """Stack ``((img1, img2), meta)`` samples into ``((im1, im2), metas)``; array metas (flows)
-    are stacked too, others (names) kept as a list."""
+    are stacked too, others (names) kept as a list. Frames of different sizes in one batch
+    raise ``ValueError`` naming the batch's first frames."""
     firsts, seconds, metas = [], [], []
     for (i1, i2), meta in samples:
         firsts.append(i1)
         seconds.append(i2)
         metas.append(meta)
+    sizes = [a.shape for a in firsts + seconds]
+    if len(set(sizes)) > 1:
+        names = "" if isinstance(metas[0], np.ndarray) else f" of {', '.join(map(str, metas))}"
+        raise ValueError(f"frames of different sizes in one batch{names}: {sizes}; the frames of a "
+                         "batch must share one size")
     im1 = np.stack(firsts)
     im2 = np.stack(seconds)
     if isinstance(metas[0], np.ndarray):
@@ -104,22 +173,26 @@ def _map(fn, tree):
 
 
 class PrefetchLoader:
-    """Move the numpy arrays of each batch of ``inner`` onto ``device`` ``prefetch`` batches
-    ahead, on a background thread; other entries (names) stay on the host.
+    """Move the arrays of each batch of ``inner`` onto ``device`` ``prefetch`` batches ahead,
+    on a background thread; other entries (names) stay on the host.
 
-    On a CUDA device each array is copied into pinned host memory and from there, without
-    blocking, on a side stream; the yielded tensors are safe to use on the stream that is
-    current where the loop consumes them: that stream waits on the copy, and each tensor is
-    recorded on it for the caching allocator. The pinned copy lives until the consumer has
-    taken the next batch, and PyTorch's pinned-memory allocator does not reuse a block
-    before the copies that read it have finished. On the CPU the arrays are copied into
-    tensors, nothing pinned.
+    Entries are numpy arrays or CPU tensors. On a CUDA device an array is copied into pinned
+    host memory, a tensor that is pinned already (a native loader's slot) is not, and each is
+    copied from there without blocking on a side stream; the yielded tensors are safe to use
+    on the stream that is current where the loop consumes them: that stream waits on the
+    copy, and each tensor is recorded on it for the caching allocator. A pinned copy made
+    here lives until the consumer has taken the next batch, and PyTorch's pinned-memory
+    allocator does not reuse a block before the copies that read it have finished. Memory
+    the source owns is its own to guard: ``fence``, where given, receives the CUDA event
+    recorded after each batch's copies, before the next batch is drawn from ``inner`` (a
+    native loader's ``fence``). On the CPU the entries are copied into new tensors.
     """
 
-    def __init__(self, inner: Iterable, device, prefetch: int = 2):
+    def __init__(self, inner: Iterable, device, prefetch: int = 2, fence: Optional[Callable] = None):
         self.inner = inner
         self.device = torch.device(device)
         self.prefetch = prefetch
+        self.fence = fence
 
     def __len__(self):
         return len(self.inner)
@@ -142,14 +215,16 @@ class PrefetchLoader:
             return False
 
         def move(x, pinned):
-            if not isinstance(x, np.ndarray) or x.dtype == object:
+            if isinstance(x, np.ndarray) and x.dtype != object:
+                x = torch.from_numpy(np.ascontiguousarray(x))
+            elif not isinstance(x, torch.Tensor):
                 return x
-            t = torch.from_numpy(np.ascontiguousarray(x))
             if not cuda:
-                return t.clone()
-            t = t.pin_memory()
-            pinned.append(t)
-            return t.to(self.device, non_blocking=True)
+                return x.clone()
+            if not x.is_pinned():
+                x = x.pin_memory()
+                pinned.append(x)
+            return x.to(self.device, non_blocking=True)
 
         def producer():
             try:
@@ -160,6 +235,8 @@ class PrefetchLoader:
                             out = _map(lambda x: move(x, pinned), batch)
                             done = torch.cuda.Event()
                             done.record(stream)
+                        if self.fence is not None:
+                            self.fence(done)
                     else:
                         out, done = _map(lambda x: move(x, pinned), batch), None
                     if not put((out, done, pinned)):

@@ -1,4 +1,5 @@
-"""The ``estimate()`` contract (port of ``piv_liteflownet_tpu/inference.py:estimate``).
+"""The ``estimate()`` contract and the ``Inference`` class (port of
+``piv_liteflownet_tpu/inference.py``).
 
 1. both frames are cast to the dtype of the model's parameters (float32, or
    bfloat16 for the fast path) and resized bilinearly (align_corners=False)
@@ -13,14 +14,16 @@ Inputs and outputs keep the JAX package's NHWC layout.
 from __future__ import annotations
 
 import math
-from typing import Tuple
+import os
+from typing import List, Optional, Tuple
 
 import numpy as np
 import torch
 
 from piv_liteflownet_tpu_torch.models.liteflownet import KERNEL_OPS, LiteFlowNet, Ops
-from piv_liteflownet_tpu_torch.ops.nn import f32_convs
+from piv_liteflownet_tpu_torch.ops.nn import device_constant, f32_convs
 from piv_liteflownet_tpu_torch.ops.resize import resize_bilinear
+from piv_liteflownet_tpu_torch.utils.flow_io import flowname_modifier, image_files_from_folder, write_flow
 
 
 def adaptive_size(h: int, w: int, mult: int = 32) -> Tuple[int, int]:
@@ -65,8 +68,114 @@ def estimate(model: LiteFlowNet, img1, img2, tensor: bool = False, ops: Ops = KE
     with f32_convs():
         flow = model(resize_bilinear(x1, ah, aw), resize_bilinear(x2, ah, aw), ops)
     flow = resize_bilinear(flow, in_h, in_w)
-    scale = torch.tensor([in_w / aw, in_h / ah], dtype=flow.dtype, device=device)
+    scale = device_constant((in_w / aw, in_h / ah), flow.dtype, device)
     flow = (flow * scale.view(1, 2, 1, 1)).permute(0, 2, 3, 1)
     if tensor or not single:
         return flow
     return flow[0].float().cpu().numpy()
+
+
+class Inference:
+    """Directory, loader and video inference (port of ``piv_liteflownet_tpu/inference.py:Inference``).
+
+    Outputs go to ``<output_dir>/<netname>/``: ``<dir>_parse/`` (``images_parsing``),
+    ``<dir>_loader/`` (``dataloader_parsing``) and ``vid_<name>/`` (``video_parsing``).
+    """
+
+    def __init__(self, model: LiteFlowNet, netname: Optional[str] = None, output_dir: str = "./outputs",
+                 batch_size: int = 1):
+        self.netname = "test" if netname is None else os.path.splitext(os.path.basename(netname))[0]
+        self.default = os.path.join(output_dir, self.netname)
+        self.model = model
+        self.batch_size = batch_size
+
+    @staticmethod
+    def parser(model: LiteFlowNet, im1, im2) -> np.ndarray:
+        """The ``[H,W,2]`` flow of two frames (arrays or PIL images); frames whose first has a
+        value above 1.5 are taken as 8-bit and divided by 255."""
+        a1, a2 = np.asarray(im1, np.float32), np.asarray(im2, np.float32)
+        if a1.max() > 1.5:
+            a1, a2 = a1 / 255.0, a2 / 255.0
+        if a1.shape != a2.shape:
+            raise ValueError(f"both frames must have the same shape, got {a1.shape} and {a2.shape}")
+        return estimate(model, a1, a2)
+
+    def images_parsing(self, imgdir: str, pair: bool = True, write: bool = True) -> List[str]:
+        """One flow per ``*_img1``/``*_img2`` pair (``pair``) or per consecutive frame pair of
+        ``imgdir``, one pair at a time; returns the output names."""
+        from PIL import Image
+
+        if not os.path.isdir(imgdir):
+            raise ValueError(f"Input directory is NOT found! At {imgdir}")
+        outdir = os.path.join(self.default, os.path.basename(imgdir) + "_parse")
+        os.makedirs(outdir, exist_ok=True)
+        if pair:
+            jobs = []
+            for file1 in image_files_from_folder(imgdir, pair=True):
+                fbase, fext = os.path.splitext(file1)
+                file2 = fbase.rsplit("_", 1)[0] + "_img2" + fext
+                if os.path.isfile(file2):
+                    jobs.append((file1, file2))
+        else:
+            files = image_files_from_folder(imgdir, pair=False)
+            jobs = list(zip(files[:-1], files[1:]))
+        out_names = []
+        for file1, file2 in jobs:
+            with Image.open(file1) as f1, Image.open(file2) as f2:
+                flow = self.parser(self.model, f1.convert("RGB"), f2.convert("RGB"))
+            out_name = flowname_modifier(file1, outdir, pair=pair)
+            if write:
+                write_flow(flow, out_name)
+            out_names.append(out_name)
+        return out_names
+
+    def dataloader_parsing(self, dir: str, pair: bool = True, write: bool = True) -> List[str]:
+        """The pairs of ``dir`` through ``Run`` and ``BatchLoader`` in batches of
+        ``batch_size``; returns the output names."""
+        from piv_liteflownet_tpu_torch.data.datasets import Run
+        from piv_liteflownet_tpu_torch.data.loader import BatchLoader
+
+        if not os.path.isdir(dir):
+            raise ValueError(f"Input directory is NOT found! At {dir}")
+        outdir = os.path.join(self.default, os.path.basename(dir) + "_loader")
+        os.makedirs(outdir, exist_ok=True)
+        out_names = []
+        for (im1, im2), names in BatchLoader(Run(root=dir, is_pair=pair), batch_size=self.batch_size):
+            flows = estimate(self.model, im1, im2, tensor=True).float().cpu().numpy()
+            for i, name in enumerate(names):
+                out_name = flowname_modifier(name, outdir, pair=pair)
+                if write:
+                    write_flow(flows[i], out_name)
+                out_names.append(out_name)
+        return out_names
+
+    def video_parsing(self, vidfile=0, write: bool = True) -> List[str]:
+        """One flow per consecutive frame pair of a video file (or a capture device index),
+        read with OpenCV (imported here: no other path needs it); returns the output names
+        ``vid_<name>/<name>_<count:06d>_out.flo``."""
+        import cv2
+
+        if isinstance(vidfile, str) and not os.path.isfile(vidfile):
+            raise ValueError(f"Input video file is NOT found! At {vidfile}")
+        window_name = os.path.splitext(os.path.basename(vidfile))[0] if isinstance(vidfile, str) else "piv_stream"
+        cap = cv2.VideoCapture(vidfile)
+        outdir = os.path.join(self.default, f"vid_{window_name}")
+        os.makedirs(outdir, exist_ok=True)
+        count, out_names, prev = 0, [], None
+        try:
+            while True:
+                ok, frame = cap.read()
+                if not ok:
+                    break
+                frame = cv2.cvtColor(frame, cv2.COLOR_BGR2RGB)
+                if prev is not None:
+                    count += 1
+                    flow = self.parser(self.model, prev, frame)
+                    out_name = os.path.join(outdir, f"{window_name}_{count:06d}_out.flo")
+                    if write:
+                        write_flow(flow, out_name)
+                    out_names.append(out_name)
+                prev = frame
+        finally:
+            cap.release()
+        return out_names

@@ -11,11 +11,14 @@ layouts (``piv_liteflownet_tpu/models/convert.py:to_torch_state_dict``):
 
 The upstream repository ships weights as ``.paramOnly`` torch state dicts,
 whose names and layouts are the port's own: ``load_param_only`` checks them.
+``rename_caffe_keys`` maps a Caffe export onto those names by position, and
+``validate_params`` checks a state dict's keys and shapes. The converter CLI
+is ``python -m piv_liteflownet_tpu_torch.convert``.
 """
 
 from __future__ import annotations
 
-from typing import Dict, Iterator, Mapping
+from typing import Dict, Iterator, List, Mapping
 
 import numpy as np
 import torch
@@ -86,3 +89,32 @@ def from_jax_params(cfg: ModelConfig, params: Mapping[str, np.ndarray]) -> Dict[
         if spec["bias"]:
             out[name + ".bias"] = torch.from_numpy(np.array(params[name + ".bias"], np.float32))
     return out
+
+
+def expected_keys(cfg: ModelConfig) -> List[str]:
+    """The state dict's keys for ``cfg``, in the model's order."""
+    return [name for name, _ in _expected(cfg)]
+
+
+def rename_caffe_keys(cfg: ModelConfig, caffe_dict: Mapping[str, object]) -> Dict[str, object]:
+    """Rename a Caffe export's tensors onto ``cfg``'s state-dict keys by position: the entries
+    whose key names a weight or a bias, in the export's order, zipped onto
+    :func:`expected_keys`. Raises if their counts differ."""
+    filtered = [(k, v) for k, v in caffe_dict.items()
+                if k.endswith("weight") or k.endswith("bias") or ".weight" in k or ".bias" in k]
+    targets = expected_keys(cfg)
+    if len(filtered) != len(targets):
+        raise ValueError(f"Caffe dict has {len(filtered)} tensors but model expects {len(targets)}")
+    return {t: v for t, (_, v) in zip(targets, filtered)}
+
+
+def validate_params(cfg: ModelConfig, state_dict: Mapping[str, object]) -> None:
+    """Check a state dict's key set and torch shapes against ``cfg``; raise on a mismatch."""
+    want = dict(_expected(cfg))
+    got = set(state_dict.keys())
+    if set(want) != got:
+        miss, extra = sorted(set(want) - got)[:5], sorted(got - set(want))[:5]
+        raise ValueError(f"param key mismatch; missing={miss} extra={extra}")
+    for name, shape in want.items():
+        if tuple(state_dict[name].shape) != shape:
+            raise ValueError(f"{name} shape {tuple(state_dict[name].shape)} != {shape}")

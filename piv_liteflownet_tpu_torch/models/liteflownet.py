@@ -38,7 +38,7 @@ import torch
 from torch import nn
 
 from piv_liteflownet_tpu_torch.ops import conv_chain, correlation, rgb_warp, warp
-from piv_liteflownet_tpu_torch.ops.nn import NEGATIVE_SLOPE, depthwise_deconv4x2, leaky_relu, unfold
+from piv_liteflownet_tpu_torch.ops.nn import NEGATIVE_SLOPE, depthwise_deconv4x2, device_constant, leaky_relu, unfold
 from piv_liteflownet_tpu_torch.ops.resize import resize_bilinear
 
 # Per-pyramid-level constants, indexed by actual level (1..6); index 0 unused.
@@ -364,7 +364,7 @@ class LiteFlowNet(nn.Module):
         """
         cfg = self.cfg
         chain = cfg.conv_impl == "chain" and not train
-        mean = torch.tensor(cfg.rgb_mean, dtype=img1.dtype, device=img1.device)
+        mean = device_constant(tuple(cfg.rgb_mean), img1.dtype, img1.device)
         x1 = (img1 - mean[:3].view(1, 3, 1, 1)).contiguous()
         x2 = (img2 - mean[3:].view(1, 3, 1, 1)).contiguous()
         feat1 = self.NetC(x1)

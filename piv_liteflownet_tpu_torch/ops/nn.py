@@ -3,12 +3,21 @@
 from __future__ import annotations
 
 import contextlib
+import functools
 from typing import Iterator
 
 import torch
 import torch.nn.functional as F
 
 NEGATIVE_SLOPE = 0.1
+
+
+@functools.lru_cache(maxsize=256)
+def device_constant(values: tuple, dtype: torch.dtype, device: torch.device) -> torch.Tensor:
+    """The 1-D tensor of ``values`` on ``device``, made on the first call and kept: a tensor
+    built from host values is a blocking copy, which waits for the work queued on the stream
+    and so keeps the host from launching ahead of the card. Never write into it."""
+    return torch.tensor(values, dtype=dtype, device=device)
 
 
 @contextlib.contextmanager

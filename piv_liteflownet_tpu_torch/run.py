@@ -1,12 +1,30 @@
 """Batch inference CLI of the port: ``python -m piv_liteflownet_tpu_torch.run``.
 
-The slice's subset of the JAX package's ``run.py`` flags: ``-m/--model``,
-``-v/--version``, ``-p/--is_pair``, ``-i/--input`` (several), ``-o/--output``,
-``-s/--start``, ``-n/--num_images``, ``--batch_size``, ``--params`` (a torch
-state dict file, or a ``.npz`` of JAX params), ``--bf16`` (the model in
-bfloat16: the fast path; the ``.flo`` files stay float32) and ``--cpu``.
+The JAX package's ``run.py`` flags: ``-m/--model``, ``-v/--version``,
+``-p/--is_pair``, ``-i/--input`` (directories or ``.pivseq`` files),
+``-o/--output``, ``-s/--start``, ``-n/--num_images``, ``-b/--brightness`` and
+``-c/--contrast`` (factor lists), ``--params`` (a torch state dict file, or a
+``.npz`` of JAX params), ``--batch_size``, ``--bf16`` (the model in bfloat16:
+the fast path; the ``.flo`` files stay float32), ``--native_io`` (libpivio's
+C loader where its decoders apply), ``--conv_impl {cudnn,chain}`` (the NetE
+conv stacks through cuDNN or the ``conv_chain`` kernel) and ``--cpu``. It runs
+on the CUDA card unless ``--cpu`` is given. ``--num_devices`` and
+``--spatial`` above 1 raise ``NotImplementedError`` (multi-GPU, ROADMAP.md
+Queue 1 item 5). The TPU's implementation selectors ``--warp_impl``,
+``--corr_impl`` and ``--conv_bands`` have no counterpart: the port has one
+exact gather and one cost-volume kernel.
 
-Output layout per input directory, as in the JAX package:
+Directory path (``main_dl``): a ``Run`` dataset (a ``PivseqRun`` for a
+``.pivseq`` input) decoded by ``BatchLoader`` threads, or with
+``--native_io`` by libpivio's C threads; ``PrefetchLoader`` copies each batch
+to the card from pinned memory on a side stream. Two batches stay in flight:
+``estimate`` of batch k+1 is launched before the flows of batch k are
+written; each batch's flows are copied back into pinned memory without
+blocking, behind an event. Brightness/contrast path (``main_mod``, with
+``-b``/``-c``): every consecutive frame pair of the directory under every
+(brightness, contrast) factor, written as ``<prefix>_<BBB>_<CCC>_<suffix>_out.flo``.
+
+Output layout per input, as in the JAX package:
 ``<output>/<netname>/<dirbase>[-<start>_<n>]/flow[/left|right]/*_out.flo``
 with an ``args.txt`` dump beside ``flow/``.
 """
@@ -15,16 +33,21 @@ from __future__ import annotations
 
 import argparse
 import os
+import time
+from collections import deque
+from dataclasses import dataclass
+from glob import glob
 
 import numpy as np
 import torch
 
-from piv_liteflownet_tpu_torch.inference import estimate
+from piv_liteflownet_tpu_torch.inference import Inference, estimate
 from piv_liteflownet_tpu_torch.models.convert import from_jax_params
 from piv_liteflownet_tpu_torch.models.factory import config, hui_liteflownet, piv_liteflownet
-from piv_liteflownet_tpu_torch.utils.flow_io import flowname_modifier, image_pairs, write_flow
+from piv_liteflownet_tpu_torch.utils.flow_io import flowname_modifier, write_flow
 
 NETNAMES = {"hui": "Hui-LiteFlowNet", "piv": "PIV-LiteFlowNet-en"}
+MOD_EXTS = ("jpg", "jpeg", "png", "bmp", "tif", "ppm")  # the brightness/contrast path's scan
 
 
 def build_parser() -> argparse.ArgumentParser:
@@ -34,19 +57,32 @@ def build_parser() -> argparse.ArgumentParser:
                         help="Number of image(s) to process from the directory.")
     parser.add_argument("--is_pair", "-p", action="store_true",
                         help="Inputs are *_img1/*_img2 pairs (else consecutive frames).")
+    parser.add_argument("--brightness", "-b", default=None, type=float, nargs="+",
+                        help="Brightness factor(s) applied to all input images (optional).")
+    parser.add_argument("--contrast", "-c", default=None, type=float, nargs="+",
+                        help="Contrast factor(s) applied to all input images (optional).")
     parser.add_argument("--model", "-m", type=str, choices=["hui", "piv"], required=True)
     parser.add_argument("--version", "-v", type=int, choices=[1, 2], default=1,
                         help="LiteFlowNet backbone version (1 or 2).")
     parser.add_argument("--input", "-i", default=["./images/demo"], type=str, nargs="+",
-                        help="Input image directory(ies).")
+                        help="Input image directory(ies) or packed .pivseq file(s).")
     parser.add_argument("--output", "-o", default="./results", type=str, help="Main output directory.")
     parser.add_argument("--params", type=str, default=None,
                         help="Weights: a torch state dict file, or .npz of JAX params. "
                              "Defaults to models/pretrain_torch/<netname>.paramOnly if present.")
     parser.add_argument("--batch_size", type=int, default=2, help="Image pairs per forward.")
+    parser.add_argument("--cpu", action="store_true", help="Run on the CPU instead of the card.")
+    parser.add_argument("--num_devices", "-d", type=int, default=1,
+                        help="Cards to shard each batch over (above 1: not ported yet).")
     parser.add_argument("--bf16", action="store_true",
                         help="Run params and activations in bfloat16 (the fast path); .flo files stay float32.")
-    parser.add_argument("--cpu", action="store_true", help="Run on the CPU instead of the card.")
+    parser.add_argument("--conv_impl", choices=["cudnn", "chain"], default="cudnn",
+                        help="The NetE conv stacks through cuDNN, or each through one conv_chain kernel.")
+    parser.add_argument("--native_io", action="store_true",
+                        help="Decode with libpivio's C threads (PNM/PNG/TIFF pairs, .pivseq); other "
+                             "formats take the Python loader. Raises if the library cannot be built.")
+    parser.add_argument("--spatial", type=int, default=1,
+                        help="Cards to shard each frame's height over (above 1: not ported yet).")
     return parser
 
 
@@ -73,31 +109,111 @@ def load_image(path: str) -> np.ndarray:
         return np.asarray(im.convert("RGB"), np.float32) / 255.0
 
 
-def run_dir(model, inputdir: str, savedir: str, is_pair: bool = False, start: int = 0,
-            num_images: int = -1, batch_size: int = 1) -> list[str]:
-    """Write one ``.flo`` per frame pair of ``inputdir``; batches consecutive pairs of one size."""
+def image_mod(imgpath: str, brightness_factor: float = 1.0, contrast_factor: float = 1.0):
+    """The RGB image with PIL's brightness, then contrast, enhancement."""
+    from PIL import Image, ImageEnhance
+
+    img = Image.open(imgpath).convert("RGB")
+    img = ImageEnhance.Brightness(img).enhance(brightness_factor)
+    return ImageEnhance.Contrast(img).enhance(contrast_factor)
+
+
+@dataclass
+class RunStats:
+    """What ``main_dl`` did: pairs written, seconds from the dataset scan to the last file,
+    and the loader it took."""
+
+    pairs: int = 0
+    seconds: float = 0.0
+    loader: str = "python"
+
+
+def main_dl(model, inputdir: str, savedir: str, is_pair: bool = False, start_id: int = 0,
+            num_images: int = -1, batch_size: int = 1, native_io: bool = False) -> RunStats:
+    """Write one ``.flo`` per frame pair of ``inputdir`` (a directory or a ``.pivseq`` file)."""
+    from piv_liteflownet_tpu_torch.data.datasets import Run
+    from piv_liteflownet_tpu_torch.data.loader import BatchLoader, PrefetchLoader, native_loader_for
+    from piv_liteflownet_tpu_torch.data.pivseq import PivseqRun
+
+    t0 = time.perf_counter()
     os.makedirs(savedir, exist_ok=True)
-    pairs = image_pairs(inputdir, is_pair, start, num_images)
-    print(f"Processing {len(pairs)} pairs of images...", flush=True)
-    written: list[str] = []
-    batch: list[tuple[np.ndarray, np.ndarray, str]] = []
+    dataset = PivseqRun if inputdir.endswith(".pivseq") else Run
+    ds = dataset(inputdir, is_pair=is_pair, n_images=num_images, start_at=start_id)
+    stats = RunStats(pairs=len(ds))
+    print(f"Processing {len(ds)} pairs of images...", flush=True)
+    loader = None
+    if native_io:
+        loader = native_loader_for(ds, batch_size)
+        if loader is None:
+            print("native I/O: not for this dataset's formats; the Python loader's PIL threads", flush=True)
+        else:
+            stats.loader = "native"
+            print(f"native I/O: libpivio's C loader ({type(loader).__name__})", flush=True)
+    if loader is None:
+        loader = BatchLoader(ds, batch_size=batch_size)
+    device = next(model.parameters()).device
+    cuda = device.type == "cuda"
 
-    def flush():
-        flows = estimate(model, np.stack([b[0] for b in batch]),
-                         np.stack([b[1] for b in batch])).float().cpu().numpy()
-        for flow, (_, _, name) in zip(flows, batch):
-            out = flowname_modifier(name, savedir, pair=False)
-            write_flow(flow, out)
-            written.append(out)
-        batch.clear()
+    def drain(item) -> None:
+        flows, copied, names = item
+        if copied is not None:
+            copied.synchronize()
+        flows = flows.numpy()
+        for i, name in enumerate(names):
+            write_flow(flows[i], flowname_modifier(name, savedir, pair=False))
 
-    for f1, f2 in pairs:
-        im1, im2 = load_image(f1), load_image(f2)
-        if batch and (len(batch) == batch_size or batch[0][0].shape != im1.shape):
-            flush()
-        batch.append((im1, im2, f1))
-    if batch:
-        flush()
+    inflight: deque = deque()  # two batches in flight: launches overlap the drain and the writes
+    try:
+        for (im1, im2), names in PrefetchLoader(loader, device, fence=getattr(loader, "fence", None)):
+            flows = estimate(model, im1, im2, tensor=True).float()
+            if cuda:
+                host = torch.empty(flows.shape, dtype=torch.float32, pin_memory=True)
+                host.copy_(flows, non_blocking=True)
+                copied = torch.cuda.Event()
+                copied.record()
+                inflight.append((host, copied, names))
+            else:
+                inflight.append((flows, None, names))
+            if len(inflight) > 2:
+                drain(inflight.popleft())
+        while inflight:
+            drain(inflight.popleft())
+    finally:
+        if hasattr(loader, "close"):
+            loader.close()
+    stats.seconds = time.perf_counter() - t0
+    print(f"Finish processing all images from {inputdir} path!", flush=True)
+    return stats
+
+
+def mod_images(inputdir: str, start_id: int = 0, num_images: int = -1) -> list:
+    """The frames of the brightness/contrast path: each extension of ``MOD_EXTS`` in turn,
+    sorted, then sliced."""
+    names = []
+    for ext in MOD_EXTS:
+        names += sorted(glob(os.path.join(inputdir, f"*.{ext}")))
+    return names[start_id:] if num_images < 0 else names[start_id:start_id + num_images]
+
+
+def main_mod(model, inputdir: str, savedir: str, start_id: int = 0, num_images: int = -1,
+             mod_factors=((1, 1),)) -> list:
+    """The flow of every consecutive frame pair under each (brightness, contrast) factor;
+    ``<prefix>_img1.png`` under (0.8, 1.2) gives ``<prefix>_080_120_img1.png`` and so
+    ``<prefix>_080_120_img1_out.flo``. Returns the files written."""
+    os.makedirs(savedir, exist_ok=True)
+    written = []
+    prev = None
+    for curr in mod_images(inputdir, start_id, num_images):
+        if prev is not None:
+            for brightness, contrast in mod_factors:
+                flow = Inference.parser(model, image_mod(prev, brightness, contrast),
+                                        image_mod(curr, brightness, contrast))
+                modname = f"{str(int(brightness * 100)).zfill(3)}_{str(int(contrast * 100)).zfill(3)}"
+                imgname, imgext = prev.rsplit("_", 1)
+                out_name = flowname_modifier(imgname + "_" + modname + "_" + imgext, savedir, pair=False)
+                write_flow(flow, out_name)
+                written.append(out_name)
+        prev = curr
     print(f"Finish processing all images from {inputdir} path!", flush=True)
     return written
 
@@ -119,27 +235,42 @@ def output_dirs(args, imdir: str) -> tuple[str, str, str]:
     return savedir, os.path.join(savedir, "flow", extradir), f"args_{extradir}.txt"
 
 
-def main(argv=None) -> None:
+def main(argv=None) -> list:
+    """Parse ``argv`` and run every input; returns each input's ``RunStats`` (directory path)
+    or list of files written (brightness/contrast path)."""
     args = build_parser().parse_args(argv)
+    for flag in ("num_devices", "spatial"):
+        if getattr(args, flag) > 1:
+            raise NotImplementedError(f"--{flag} > 1: multi-GPU inference is not ported yet; "
+                                      "see ROADMAP.md Queue 1 item 5")
     cfg = config(args.model, args.version)
     factory = hui_liteflownet if args.model == "hui" else piv_liteflownet
     device = "cpu" if args.cpu else None
     weights, args.netname = load_weights(args, cfg)
     if weights is None:
         print("WARNING: no weight file found or given; using a seeded random init", flush=True)
-    model = factory(weights, version=args.version, device=device)
+    model = factory(weights, version=args.version, device=device, conv_impl=args.conv_impl)
     if args.bf16:
         model = model.to(torch.bfloat16)
         print("bfloat16 fast path enabled", flush=True)
-    print(f"Running on {next(model.parameters()).device}", flush=True)
+    print(f"Running on {next(model.parameters()).device}, conv_impl={args.conv_impl}", flush=True)
+    results = []
     for imdir in args.input:
         savedir, flodir, argsname = output_dirs(args, imdir)
         os.makedirs(savedir, exist_ok=True)
         with open(os.path.join(savedir, argsname), "w") as f:
             for argument, value in sorted(vars(args).items()):
                 f.write(f"{argument}: {value}\n")
-        run_dir(model, imdir, flodir, is_pair=args.is_pair, start=args.start,
-                num_images=args.num_images, batch_size=args.batch_size)
+        if args.brightness is None and args.contrast is None:
+            results.append(main_dl(model, imdir, flodir, is_pair=args.is_pair, start_id=args.start,
+                                   num_images=args.num_images, batch_size=args.batch_size,
+                                   native_io=args.native_io))
+        else:
+            brightness = (1.0,) if args.brightness is None else tuple(args.brightness)
+            contrast = (1.0,) if args.contrast is None else tuple(args.contrast)
+            results.append(main_mod(model, imdir, flodir, start_id=args.start, num_images=args.num_images,
+                                    mod_factors=tuple((b, c) for b in brightness for c in contrast)))
+    return results
 
 
 if __name__ == "__main__":

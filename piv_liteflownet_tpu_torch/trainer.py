@@ -13,9 +13,11 @@ the device, then runs ``Train``::
 
 ``DIR`` holds ``train.json``/``val.json`` manifests of ``*_img1/_img2`` +
 ``_flow.flo`` triplets (``data/piv_gen.py:make_dataset_dir`` writes one). It
-runs on the CUDA card unless ``--cpu`` is given. ``--native_io``,
-``--number_devices`` above 1 and the optimizers ``torch.optim`` lacks raise
-``NotImplementedError`` (ROADMAP.md).
+runs on the CUDA card unless ``--cpu`` is given. ``--native_io`` decodes the
+training triplets with libpivio's C threads (``data/native.py``) where its
+decoders take the dataset's formats, and raises if the library cannot be
+built. ``--number_devices`` above 1 and the optimizers ``torch.optim`` lacks
+raise ``NotImplementedError`` (ROADMAP.md).
 
 ``Train`` takes a dict of loaders keyed ``"train"`` and ``"val"``; each is
 a sized iterable of numpy batches ``((im1, im2), target)`` with ``im
@@ -169,7 +171,7 @@ class Train:
             for (im1, im2), target in loader:
                 yield ((im1, im2), target) if training else _center_crop64(im1, im2, target)
 
-        batches = IteratorTimer(PrefetchLoader(host_batches(), device))
+        batches = IteratorTimer(PrefetchLoader(host_batches(), device, fence=getattr(loader, "fence", None)))
         prev_end = None
         for batch_idx, batch in enumerate(batches):
             events = None
@@ -252,7 +254,8 @@ def build_parser() -> argparse.ArgumentParser:
     parser.add_argument("--bias_decay", "-bd", type=float, default=0.0)
     parser.add_argument("--number_workers", "-nw", "--num_workers", type=int, default=8)
     parser.add_argument("--native_io", action="store_true",
-                        help="the C++ batch loader (not ported yet; raises)")
+                        help="decode training triplets with libpivio's C threads (PIVData of "
+                             "PNG/TIFF/PNM frames); raises if the library cannot be built")
     parser.add_argument("--bf16", action="store_true",
                         help="bf16 compute with float32 master params, loss and optimizer")
     parser.add_argument("--number_devices", "-nd", type=int, default=-1,
@@ -301,7 +304,7 @@ def build_parser() -> argparse.ArgumentParser:
 def main(argv=None) -> Train:
     """Parse ``argv``, build everything and train; returns the finished ``Train``."""
     from piv_liteflownet_tpu_torch.data.datasets import get_transform
-    from piv_liteflownet_tpu_torch.data.loader import BatchLoader
+    from piv_liteflownet_tpu_torch.data.loader import BatchLoader, native_train_loader_for
     from piv_liteflownet_tpu_torch.models.convert import load_param_only
     from piv_liteflownet_tpu_torch.models.factory import resolve_device
     from piv_liteflownet_tpu_torch.models.liteflownet import LiteFlowNet, ModelConfig
@@ -313,8 +316,6 @@ def main(argv=None) -> Train:
 
     parser = build_parser()
     args = parser.parse_args(argv)
-    if args.native_io:
-        raise NotImplementedError("--native_io: the native-I/O slice is not ported yet; see ROADMAP.md")
     if args.number_devices > 1:
         raise NotImplementedError("--number_devices > 1: multi-GPU training is not ported yet; see ROADMAP.md")
     device = resolve_device("cpu" if args.cpu else None)
@@ -340,9 +341,17 @@ def main(argv=None) -> Train:
 
     with TimerBlock("Initializing datasets") as block:
         train_ds = cfgutil.instance_from_args(parser, args, "training_dataset")
-        loaders = {"train": BatchLoader(train_ds, batch_size=args.batch_size,
-                                        num_workers=args.number_workers, shuffle=True,
-                                        seed=args.seed, drop_last=True)}
+        train_loader = None
+        if args.native_io:
+            train_loader = native_train_loader_for(train_ds, batch_size=args.batch_size,
+                                                   num_workers=args.number_workers, shuffle=True,
+                                                   seed=args.seed, drop_last=True)
+            block.log("native ingest: " + ("libpivio's C loader" if train_loader else
+                                           "not for this dataset's formats; the Python loader"))
+        if train_loader is None:
+            train_loader = BatchLoader(train_ds, batch_size=args.batch_size, num_workers=args.number_workers,
+                                       shuffle=True, seed=args.seed, drop_last=True)
+        loaders = {"train": train_loader}
         try:
             val_ds = cfgutil.instance_from_args(parser, args, "validation_dataset")
             loaders["val"] = BatchLoader(val_ds, batch_size=args.batch_size,

@@ -140,12 +140,6 @@ def flowname_modifier(indir: str, outdir: str, ext: str = "_out.flo", pair: bool
     return os.path.join(outdir, out_name + ext)
 
 
-def image_files(folder: str) -> list[str]:
-    """Images in ``folder``, sorted by name."""
-    files = [os.path.join(folder, f) for f in sorted(os.listdir(folder))]
-    return [f for f in files if os.path.splitext(f)[1].lower().lstrip(".") in IMAGE_EXTS]
-
-
 def image_files_from_folder(folder: str, pair: bool = True, exts=IMAGE_EXTS) -> list[str]:
     """Images of ``folder`` grouped by extension in ``exts`` order, each group sorted; with
     ``pair`` only the ``*_img1.*`` files."""
@@ -155,24 +149,3 @@ def image_files_from_folder(folder: str, pair: bool = True, exts=IMAGE_EXTS) -> 
     if pair:
         files = [f for f in files if os.path.splitext(f)[0].endswith("_img1")]
     return files
-
-
-def image_pairs(folder: str, is_pair: bool, start: int = 0, n_images: int = -1) -> list[tuple[str, str]]:
-    """Frame pairs of an inference directory.
-
-    ``is_pair``: every ``*_img1.*`` with an ``*_img2.*`` sibling; otherwise
-    consecutive frames. ``start``/``n_images`` slice the file list first.
-    """
-    files = image_files(folder)
-    if is_pair:
-        files = [f for f in files if os.path.splitext(f)[0].endswith("_img1")]
-    files = files[start:] if n_images < 0 else files[start:start + n_images]
-    if not is_pair:
-        return list(zip(files[:-1], files[1:]))
-    pairs = []
-    for f1 in files:
-        base, ext = os.path.splitext(f1)
-        f2 = base.rsplit("_", 1)[0] + "_img2" + ext
-        if os.path.isfile(f2):
-            pairs.append((f1, f2))
-    return pairs

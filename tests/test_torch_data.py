@@ -282,9 +282,10 @@ def test_prefetch_loader_raises_the_producers_error_and_stops_early():
 
 
 def test_native_loaders_are_not_ported():
+    """The native loaders are ported (tests/test_torch_native_io.py); a dataset with no frame
+    pairs or triplets takes neither."""
     for fn in (native_loader_for, native_train_loader_for):
-        with pytest.raises(NotImplementedError, match="ROADMAP.md"):
-            fn(None, 2)
+        assert fn(None, 2) is None
 
 
 # -- flow_io -----------------------------------------------------------------------------------

@@ -15,7 +15,7 @@ import pytest
 
 from piv_liteflownet_tpu_torch import run as port_run
 from piv_liteflownet_tpu_torch.utils.flow_io import (
-    flowname_modifier, image_pairs, read_flow, write_flow)
+    flowname_modifier, read_flow, write_flow)
 
 REPO = Path(__file__).resolve().parents[1]
 
@@ -65,12 +65,14 @@ def _make_pairs(root, n=2, size=(32, 32), seed=0):
 
 @pytest.mark.parametrize("is_pair,start,n", [(True, 0, -1), (True, 1, 2), (False, 0, -1), (False, 1, 3)])
 def test_image_pairs_match_jax_run_dataset(tmp_path, is_pair, start, n):
-    from piv_liteflownet_tpu.data.datasets import Run
+    """The directory scan of the port's ``run``: ``Run.pairs``, with a non-image file beside the frames."""
+    from piv_liteflownet_tpu.data.datasets import Run as JaxRun
+    from piv_liteflownet_tpu_torch.data.datasets import Run
 
     _make_pairs(str(tmp_path), n=3, size=(8, 8))
     (tmp_path / "notes.txt").write_text("not an image")
-    want = Run(str(tmp_path), is_pair=is_pair, n_images=n, start_at=start).pairs
-    assert image_pairs(str(tmp_path), is_pair, start, n) == want
+    want = JaxRun(str(tmp_path), is_pair=is_pair, n_images=n, start_at=start).pairs
+    assert Run(str(tmp_path), is_pair, n, start).pairs == want
 
 
 def test_run_cli_pair_mode_layout(tmp_path):

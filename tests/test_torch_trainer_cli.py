@@ -167,7 +167,7 @@ def test_main_loads_pretrained_weights(dataset, tmp_path):
     assert to_jax_params(PIV_V1, want).keys() == set(np.load(str(tmp_path / "w.npz")).files)
 
 
-@pytest.mark.parametrize("flags", [["--native_io"], ["--number_devices", "2"], ["--optimizer", "Lion"],
+@pytest.mark.parametrize("flags", [["--optimizer", "Yogi"], ["--number_devices", "2"], ["--optimizer", "Lion"],
                                    ["--optimizer", "Novograd"]])
 def test_main_raises_for_what_is_not_ported(dataset, tmp_path, flags):
     with pytest.raises(NotImplementedError, match="ROADMAP.md"):
