@@ -14,9 +14,11 @@ through the port's entry points (``piv_liteflownet``,
 ``hui_liteflownet``, ``estimate``, ``write_flow``/``read_flow``;
 ``make_optimizer``, ``make_train_step``, ``Train``, ``resume``; the data path
 and ``python -m piv_liteflownet_tpu_torch.trainer``'s ``main``; ``run``,
-``evaluate`` and the pack CLI's ``main``) at full width with seeded random
-weights and the tracked trained ones, in seven phases; each raises on
-failure, and then the script exits non-zero without the final line.
+``evaluate`` and the pack CLI's ``main``; ``make_train_step(remat=True)``,
+Lion/Lamb/Yogi/Novograd, ``utils/profiling.trace``, ``postpro``,
+``stereo_cal`` and ``stereo_run``) at full width with seeded random weights
+and the tracked trained ones, in eight phases; each raises on failure, and
+then the script exits non-zero without the final line.
 
 1. Card and build: the card's name and power limit (nvidia-smi), and the
    ``nvcc`` build of ``piv_liteflownet_tpu_torch/csrc/*.cu`` with its seconds
@@ -216,6 +218,26 @@ failure, and then the script exits non-zero without the final line.
    phase 6's launches, the first loss bit-equal to the Python loader's run,
    the rest within rel 1e-3, its step times, waits and idle gaps beside
    phase 6's.
+8. Training extras, post-processing and stereo (``run_extras``):
+   ``make_train_step(remat=True)`` for piv v1 and v2 at 256^2 b8, float32
+   and mixed bf16, beside the step without remat from the same weights on
+   phase 5's batch (every forward kernel launched exactly twice as often,
+   every backward kernel as often; the loss, and each parameter's gradient
+   within 1e-5 of its max |grad|; ms/step median and p90 of 10 in turns; peak
+   memory); ``profiling.trace`` around two float32 remat steps (the Chrome
+   trace names the port's kernels); two steps of Lion, Lamb, Yogi and
+   Novograd on the card against the CPU from the same gradients (atol 1e-6),
+   ``trainer --optimizer X`` on phase 6's small directory, ``--resume`` of the
+   Novograd run (first loss bit-equal, count carried); ``calc_vorticity`` and
+   ``de_vort`` of the trained v1 weights' evalset flows, card against CPU
+   (atol 1e-6); ``stereo_cal --clicks`` on two synthetic 1024^2 plates on the
+   card and with ``--cpu`` (cross counts equal, centres within 1e-3 px,
+   mappings within 0.01 px); ``stereo_run`` with the trained v1 weights,
+   ``direct`` and ``manual`` on 8 rendered 1024^2 stereo pairs (within 1e-4
+   px; pairs/s beside two estimates alone, the card's idle share between
+   estimates), identical views with identity coefficients (W exactly 0, U
+   and V ``estimate``'s flow), one 256^2 pair card against ``--cpu`` (1e-3 px),
+   and ``reconstruct`` on the card beside the same arithmetic in numpy.
 
 The line before the last is ``{"kernels": [...]}`` (``launches``: per call of
 each kernel's own path, the piv v1 estimate for the forward kernels, the
@@ -223,8 +245,8 @@ piv v2 chain estimate for ``conv_chain``, the piv v1 train step for the
 backward ones, the piv v1 bf16 estimate for the forward ``_bf16`` forms,
 the piv v1 bf16 chain estimate for ``conv_chain_bf16``, the piv v1 bf16
 train step for the backward ones; ``launches_per_train_step`` of the float32 piv v1 step and
-``launches_by_path`` for all twelve C entry points, the trainer CLI's runs, ``evaluate``'s and ``run``'s
-among the paths); the last line is
+``launches_by_path`` for all twelve C entry points, the trainer CLI's runs, ``evaluate``'s and ``run``'s,
+the float32 and bf16 piv v1 remat steps and ``stereo_run direct`` among the paths); the last line is
 ``{"ok": true, "device": {...}}``. Without a CUDA device it exits 2 and
 prints no result. It needs no argument; ``--parent DIR`` adds the parent's
 warp, rgb warp-norm and cost-volume kernels to phases 2, 4 and 5.
@@ -2825,6 +2847,500 @@ def run_ingest(dev, ops, card, trained_aees: dict, cli: dict, tmp: Path) -> dict
 
 #: The parent tree's sources built beside this tree's, those of them that it has (before its own
 #: sources for the bf16 cost volumes, their forms lived in the float32 forms' sources).
+# -- phase 8: training extras, post-processing and stereo ---------------------------------------
+
+REMAT_CASES = ((1, None), (1, torch.bfloat16), (2, None), (2, torch.bfloat16))
+#: gradients remat vs not, per parameter, both steps with cuDNN's deterministic algorithms (its
+#: default backward varies in order): float32 atol 1e-5 * max|g|; bf16 two bf16 ulps of max|g|,
+#: because v2's output resize adds its bf16 gradient with atomics (each add rounded to bf16, in a
+#: varying order) even so: a second run of the same step differs by one ulp there too
+REMAT_RTOL = 1e-5
+REMAT_BF16_ULPS = 2
+REMAT_TURNS = 10  # timed steps of each, in turns
+PATH_REMAT = "remat step piv v1 256^2 b8"
+PATH_REMAT_BF16 = "remat step piv v1 256^2 b8 bf16"
+PATH_STEREO = "stereo_run direct piv v1 1024^2, 8 stereo pairs"
+OWN_OPTIMIZERS = ("Lion", "Lamb", "Yogi", "Novograd")
+OPT_ATOL = 1e-6  # params after two optimizer steps, card vs CPU from the same gradients
+POSTPRO_ATOL = 1e-6  # vorticity and strains, card vs CPU on the same flows
+#: the kernels a float32 remat step must show in a profiler trace, by their device names
+TRACE_KERNELS = ("corr49_kernel", "backwarp_kernel", "rgb_warp_norm_lanes_kernel", "corr49_bwd_kernel",
+                 "backwarp_bwd_kernel")
+STEREO_N, STEREO_SIZE = 8, 1024  # stereo_run's directory: 8 stereo pairs rendered on the card
+STEREO_ATOL = 1e-4  # px: direct against manual on the card
+STEREO_CPU_ATOL = 1e-3  # px: direct on the card against --cpu, one 256^2 pair
+CAL_ATOL = 0.01  # px: the fitted mappings of the grid points, card against CPU
+PLATE_SIZE, PLATE_PITCH = 1024, 40
+
+
+def plate_distortion(shift: float) -> np.ndarray:
+    """A camera's mild rational distortion of the calibration plate (``nl_trans`` coefficients,
+    about the image centre), shifted by ``shift`` px in x."""
+    A = np.zeros(24)
+    A[[0, 1, 2, 3, 6, 8]] = [1.0, 0.02, shift, 2e-5, 1e-5, 1.0]
+    A[[12, 13, 16, 19, 20]] = [-0.015, 1.0, 1e-5, -1e-5, 1.0]
+    return A
+
+
+def remat_case(dev, ops, card, version: int, dtype) -> dict:
+    """``make_train_step(remat=True)`` beside the same step without it, piv ``version`` at 256^2
+    b8 on phase 5's batch, from the same weights: launches (every forward kernel twice the
+    step's, every backward kernel as often), loss and gradients (``REMAT_RTOL``: the first step
+    of each with ``cudnn.deterministic``; a second run of the step without remat shows the card's
+    own spread), ms/step (median and p90 of ``REMAT_TURNS``, in turns),
+    peak memory of one step and, in float32, the memory the train forward keeps for the
+    backward."""
+    from piv_liteflownet_tpu_torch.parallel.train_step import TrainState, make_train_step
+    from piv_liteflownet_tpu_torch.training.loss import piv_loss, v2_multiscale
+    from piv_liteflownet_tpu_torch.training.optim import make_optimizer
+    from piv_liteflownet_tpu_torch.utils.synthetic import particle_pair
+
+    shift = (2.5, -1.5)
+    im1, im2 = particle_pair(TRAIN_B, TRAIN_H, TRAIN_W, seed=20 if version == 1 else 21, shift=shift)
+    target = np.empty((TRAIN_B, TRAIN_H, TRAIN_W, 2), np.float32)
+    target[...] = shift
+    batch = tuple(torch.from_numpy(a).to(dev) for a in (im1, im2, target))
+    loss_obj = piv_loss() if version == 1 else v2_multiscale()
+    runs = {}
+    for remat in (False, True, "repeat"):
+        model = build_model("piv", version, "cudnn")
+        opt = make_optimizer(model, model.cfg.lowest_level)
+        step = make_train_step(model.cfg, loss_obj, opt, remat=remat is True, compute_dtype=dtype)
+        state = TrainState(model, opt)
+        torch.cuda.synchronize()
+        reset_counts(ops)
+        torch.backends.cudnn.deterministic = True
+        try:
+            state, metrics = step(state, *batch)
+            torch.cuda.synchronize()
+        finally:
+            torch.backends.cudnn.deterministic = False
+        runs[remat] = {"state": state, "step": step, "counts": read_counts(ops), "loss": float(metrics["loss"]),
+                       "grads": {n: p.grad.clone() for n, p in state.model.named_parameters()}}
+    plain, rem, repeat = runs[False], runs[True], runs.pop("repeat")
+    sfx = "_bf16" if dtype is not None else ""
+    want = dict(plain["counts"])
+    for name in FWD_KERNELS[:3]:
+        want[name + sfx] *= 2
+    if plain["counts"]["corr49" + sfx] == 0 or rem["counts"] != want:
+        raise AssertionError(f"remat step launches {rem['counts']}, expected {want} (the step's {plain['counts']})")
+    if not abs(rem["loss"] - plain["loss"]) <= 1e-6 * abs(plain["loss"]):
+        raise AssertionError(f"remat loss {rem['loss']!r} vs {plain['loss']!r}")
+    worst, worst_noise = 0.0, 0.0
+    for n, g in plain["grads"].items():
+        scale = max(float(g.abs().max()), 1e-30)
+        err = float((rem["grads"][n] - g).abs().max())
+        noise = float((repeat["grads"][n] - g).abs().max())
+        tol = REMAT_RTOL * scale if dtype is None else REMAT_BF16_ULPS * float(bf16_ulp(g.abs().max()))
+        if not err <= tol:
+            raise AssertionError(f"remat gradient {n}: max abs diff {err:.3e}, max|g| {scale:.3e}, the step "
+                                 f"against a second run of it {noise:.3e}")
+        worst, worst_noise = max(worst, err / scale), max(worst_noise, noise / scale)
+    del repeat
+    for run in runs.values():
+        del run["grads"]
+    samples = {False: [], True: []}
+    for turn in range(REMAT_TURNS + 1):  # the first turn warms up
+        for remat in ((False, True) if turn % 2 else (True, False)):
+            run = runs[remat]
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            run["state"], _ = run["step"](run["state"], *batch)
+            torch.cuda.synchronize()
+            if turn:
+                samples[remat].append((time.perf_counter() - t0) * 1e3)
+    peak = {r: peak_memory(dev, lambda r=r: runs[r]["step"](runs[r]["state"], *batch)) for r in (False, True)}
+    stats = {r: np.percentile(samples[r], [50, 90]) for r in (False, True)}
+    what = f"piv v{version} {'bf16' if dtype is not None else 'float32'}"
+    kept = ""
+    if dtype is None:
+        kept = "; kept by the train forward for the backward: " + ", ".join(
+            f"{'remat' if r else 'without'} {forward_memory(runs[r]['state'].model, batch, r):.3f} GiB"
+            for r in (True, False))
+    log(f"  remat step {what} {TRAIN_H}^2 b{TRAIN_B}: launches {rem['counts']} (without remat {plain['counts']}); "
+        f"loss {rem['loss']!r} vs {plain['loss']!r}; gradients worst max|dg|/max|g| {worst:.3e} "
+        f"(tolerance {REMAT_RTOL if dtype is None else f'{REMAT_BF16_ULPS} bf16 ulps of max|g|'}); the step against "
+        f"a second run of it {worst_noise:.3e}")
+    log(f"    ms/step median / p90 of {REMAT_TURNS} in turns: remat {stats[True][0]:.3f} / {stats[True][1]:.3f}, "
+        f"without {stats[False][0]:.3f} / {stats[False][1]:.3f} (x{stats[True][0] / stats[False][0]:.3f}); peak "
+        f"memory of a step remat {peak[True]:.3f} GiB, without {peak[False]:.3f} GiB "
+        f"(x{peak[True] / peak[False]:.3f}){kept}  ({card})")
+    out = {"launches": rem["counts"], "ms": stats[True][0], "ms_plain": stats[False][0], "peak": peak[True],
+           "peak_plain": peak[False]}
+    if version == 1 and dtype is None:
+        out["state"], out["step"], out["batch"] = runs[True]["state"], runs[True]["step"], batch
+    return out
+
+
+def forward_memory(model, batch, remat: bool) -> float:
+    """GiB the float32 train forward of ``batch`` leaves allocated (what autograd keeps for the
+    backward, and the outputs)."""
+    from piv_liteflownet_tpu_torch.inference import to_nchw
+    from piv_liteflownet_tpu_torch.ops.nn import f32_convs
+
+    x1, x2 = (to_nchw(a, a.device) for a in batch[:2])
+    torch.cuda.synchronize()
+    base = torch.cuda.memory_allocated()
+    with f32_convs():
+        out = model(x1, x2, train=True, remat=remat)
+    torch.cuda.synchronize()
+    kept = (torch.cuda.memory_allocated() - base) / 2**30
+    del out
+    return kept
+
+
+def check_trace(state, step, batch) -> None:
+    """``utils/profiling.trace`` around two float32 remat steps: the Chrome trace it writes must
+    name every kernel of ``TRACE_KERNELS``."""
+    from piv_liteflownet_tpu_torch.utils import profiling
+
+    with tempfile.TemporaryDirectory() as tdir:
+        (prof, printed) = quiet(lambda: _traced_steps(profiling, tdir, state, step, batch))
+        trace = json.loads(Path(prof.trace_path).read_text())
+        size = Path(prof.trace_path).stat().st_size
+    kernels = [e["name"] for e in trace["traceEvents"] if e.get("cat") == "kernel"]
+    missing = [k for k in TRACE_KERNELS if not any(k in name for name in kernels)]
+    if missing:
+        raise AssertionError(f"the trace of two remat steps names no {missing}: {sorted(set(kernels))[:20]}")
+    log(f"  profiling.trace around two remat steps: {size / 2**20:.2f} MiB Chrome trace, {len(kernels)} kernel "
+        f"events, {sum(any(k in name for k in TRACE_KERNELS) for name in kernels)} of them the port's "
+        f"({', '.join(TRACE_KERNELS)})")
+
+
+def _traced_steps(profiling, tdir, state, step, batch):
+    with profiling.trace(tdir) as prof:
+        for _ in range(2):
+            state, _ = step(state, *batch)
+    return prof
+
+
+def run_optimizers(dev, ops, tmp: Path) -> None:
+    """Two steps of each of the port's own optimizers on the card against the same steps on the
+    CPU from the same gradients (``OPT_ATOL``); ``trainer --optimizer X`` for an epoch of phase 6's
+    small directory (Novograd two, with backups); ``--resume`` of the Novograd run from its
+    ``backup_1``: its first loss bit-equal to the unbroken run's epoch 2, its count carried."""
+    from piv_liteflownet_tpu_torch import piv_liteflownet
+    from piv_liteflownet_tpu_torch.training.optim import make_optimizer
+
+    errs = {}
+    for name in OWN_OPTIMIZERS:
+        models = {d: piv_liteflownet(version=1, seed=0, device=d) for d in (dev, "cpu")}
+        opts = {d: make_optimizer(m, 1, optimizer=name) for d, m in models.items()}
+        rng = np.random.default_rng(31)
+        grads = {n: 1e-2 * rng.standard_normal(p.shape).astype(np.float32)
+                 for n, p in models["cpu"].named_parameters()}
+        for _ in range(2):  # the same gradients twice: Lion's sign then has no near-zero argument
+            for d, m in models.items():
+                for n, p in m.named_parameters():
+                    p.grad = torch.from_numpy(grads[n]).to(p.device)
+                opts[d].step()
+        errs[name] = max(float((a.detach().cpu() - b.detach()).abs().max()) for a, b in
+                         zip(models[dev].parameters(), models["cpu"].parameters()))
+        counts = {float(st["count"]) for st in opts[dev].state.values()}
+        if not errs[name] <= OPT_ATOL or counts != {2.0}:
+            raise AssertionError(f"{name}: card vs CPU {errs[name]:.3e} (tolerance {OPT_ATOL}), counts {counts}")
+    log(f"  two steps of each optimizer, card vs CPU from the same gradients, max abs diff of the params: "
+        + ", ".join(f"{k} {v:.3e}" for k, v in errs.items()) + f" (tolerance {OPT_ATOL})")
+
+    root, cli = tmp / "data", tmp / "cli_opt"
+    steps = len(json.loads((root / "train.json").read_text())) // TRAIN_B
+    runs = {}
+    for name in OWN_OPTIMIZERS:
+        epochs = 2 if name == "Novograd" else 1
+        tr, counts, secs = run_cli(ops, root, cli / name, "--optimizer", name, "--total_epochs", str(epochs),
+                                   "--backup_frequency", "1", "--validation_dataset_mode", "none")
+        losses = logged_losses(tr, "train_batch")
+        want = cli_counts(epochs * steps, 0, bf16=False)
+        if type(tr.state.optimizer).__name__ != name or counts != want or len(losses) != epochs * steps \
+                or not all(np.isfinite([v for _, v in losses])):
+            raise AssertionError(f"trainer --optimizer {name}: {type(tr.state.optimizer).__name__}, launches "
+                                 f"{counts} (expected {want}), losses {losses}")
+        runs[name] = (losses, secs)
+    resumed, _, _ = run_cli(ops, root, cli / "Novograd_resumed", "--optimizer", "Novograd", "--total_epochs", "2",
+                            "--validation_dataset_mode", "none", "--resume", str(cli / "Novograd" / "backup_1"))
+    r_losses, u_losses = logged_losses(resumed, "train_batch"), runs["Novograd"][0]
+    counts = {float(st["count"]) for st in resumed.state.optimizer.state.values()}
+    if not r_losses or r_losses[0] != u_losses[steps] or counts != {2.0 * steps}:
+        raise AssertionError(f"Novograd resume: {r_losses} vs the unbroken run's epoch 2 {u_losses[steps:]}, "
+                             f"counts {counts}")
+    log(f"  trainer --optimizer X, piv v1 b{TRAIN_B} crop {TRAIN_H}^2, {steps} steps an epoch: "
+        + "; ".join(f"{k} losses {[round(v, 6) for _, v in ls]} ({s:.2f} s)" for k, (ls, s) in runs.items()))
+    log(f"  --resume of the Novograd run from backup_1: first loss {r_losses[0][1]!r} equals the unbroken run's "
+        f"epoch 2 bit for bit; count {2 * steps} after epoch 2")
+
+
+def run_postpro(dev) -> None:
+    """``calc_vorticity`` and ``de_vort`` of the trained v1 weights' evalset flows on the card
+    against the same functions on the CPU on the same flows (``POSTPRO_ATOL``)."""
+    from piv_liteflownet_tpu_torch import piv_liteflownet, postpro
+    from piv_liteflownet_tpu_torch.inference import estimate
+    from piv_liteflownet_tpu_torch.models.factory import PIV_V1
+    from piv_liteflownet_tpu_torch.utils.checkpoint import load_params_npz
+
+    repo = Path(__file__).resolve().parent
+    model = piv_liteflownet(load_params_npz(PIV_V1, str(repo / TRAINED[1][0])), version=1)
+    _, im1, im2, _ = read_evalset(repo / EVALSET)
+    flows = estimate(model, im1, im2)
+    errs = {}
+    for name in ("calc_vorticity", "de_vort"):
+        for calib in (1.0, 0.37):
+            got = getattr(postpro, name)(flows, calib=calib)
+            want = getattr(postpro, name)(flows.cpu(), calib=calib)
+            errs[f"{name} calib {calib}"] = max(float((g.cpu() - w).abs().max()) for g, w in zip(got, want))
+            if got[0].device != flows.device or got[0].shape != flows.shape[:3]:
+                raise AssertionError(f"{name}: {got[0].device} {tuple(got[0].shape)}")
+    if not max(errs.values()) <= POSTPRO_ATOL:
+        raise AssertionError(f"postpro card vs CPU {errs} (tolerance {POSTPRO_ATOL})")
+    log(f"  postpro of the trained v1 weights' {len(flows)} evalset flows {tuple(flows.shape[1:3])}, card vs CPU, "
+        f"max abs diff: " + ", ".join(f"{k} {v:.3e}" for k, v in errs.items()) + f" (tolerance {POSTPRO_ATOL})")
+
+
+def save_grey(im: torch.Tensor, path: Path) -> None:
+    """An ``[H,W,3]`` frame in [0, 1] as an 8-bit grey PNG, as ``make_dataset_dir`` writes them."""
+    from PIL import Image
+
+    Image.fromarray((im[..., 0] * 255).to(torch.uint8).cpu().numpy()).save(path)
+
+
+def render_stereo_pairs(dev, root: Path, n: int, size: int, seed: int) -> None:
+    """``n`` stereo PIV pairs ``root/{left,right}/s<i>-{L,R}_img{1,2}.png``: the same particles
+    (``data/piv_gen``) moved by (1.5, 0.5) px in the left view and (-1.5, 0.5) in the right."""
+    from piv_liteflownet_tpu_torch.data.piv_gen import ParticleImageGen, uniform_flow
+
+    gen = ParticleImageGen(image_size=(size, size))
+    generator = torch.Generator().manual_seed(seed)
+    for cam in ("left", "right"):
+        (root / cam).mkdir(parents=True)
+    for i in range(n):
+        parts = gen.sample_particles(generator, dev)
+        for cam, tag, u in (("left", "L", 1.5), ("right", "R", -1.5)):
+            im1, im2 = gen.advect(parts, uniform_flow(size, size, u, 0.5, device=dev))
+            save_grey(im1, root / cam / f"s{i:02d}-{tag}_img1.png")
+            save_grey(im2, root / cam / f"s{i:02d}-{tag}_img2.png")
+
+
+def numpy_reconstruct(flows, coeff: dict, theta, beta, fps, calib) -> np.ndarray:
+    """The JAX package's stereo arithmetic in numpy on the host (``_stereo_cal`` and ``willert``):
+    the reference for ``stereo_run.reconstruct`` and its time."""
+    def nl(x, y, A):
+        A = np.asarray(A, np.float64)
+        x, y = np.asarray(x, np.float64), np.asarray(y, np.float64)
+        x2, y2, xy = x * x, y * y, x * y
+        return ((A[0] * x + A[1] * y + A[2] + A[3] * x2 + A[4] * y2 + A[5] * xy)
+                / (A[6] * x + A[7] * y + A[8] + A[9] * x2 + A[10] * y2 + A[11] * xy),
+                (A[12] * x + A[13] * y + A[14] + A[15] * x2 + A[16] * y2 + A[17] * xy)
+                / (A[18] * x + A[19] * y + A[20] + A[21] * x2 + A[22] * y2 + A[23] * xy))
+
+    cal = []
+    for f, cam in zip(flows, ("Left", "Right")):
+        u, v = nl(f[:, :, 0], f[:, :, 1], coeff[cam])
+        fs = np.dstack([u, v]).astype(np.float32)
+        cal.append(fs * calib * fps if calib else fs)
+    u, v = [f[:, :, 0] for f in cal], [f[:, :, 1] for f in cal]
+    t0, t1 = np.tan(theta[0]), np.tan(theta[1])
+    b0, b1 = np.tan(beta[0]), np.tan(beta[1])
+    return np.dstack([(u[1] * t0 - u[0] * t1) / (t0 - t1),
+                      (v[0] + v[1]) / 2 + (u[1] - u[0]) * (b1 - b0) / (t0 - t1) / 2,
+                      (u[1] - u[0]) / (t0 - t1)]).astype(np.float32)
+
+
+def run_calibration(tmp: Path) -> Path:
+    """``stereo_cal --clicks`` on a synthetic 1024^2 left and right plate (``calibration_plate``:
+    crosses every 40 px under ``plate_distortion``, grey noise 8) on the card and with ``--cpu``:
+    the same cross counts, the centres, and the mappings of the grid points within ``CAL_ATOL``.
+    Returns the card's coefficient file."""
+    from PIL import Image
+
+    from piv_liteflownet_tpu_torch import stereo_cal
+    from piv_liteflownet_tpu_torch.stereo.dewarp import nl_trans
+    from piv_liteflownet_tpu_torch.utils.synthetic import calibration_plate
+
+    plates = tmp / "plates"
+    plates.mkdir()
+    for tag, shift, seed in (("-L", 3.0, 41), ("-R", -3.0, 42)):
+        img, centres = calibration_plate(PLATE_SIZE, PLATE_SIZE, PLATE_PITCH, plate_distortion(shift),
+                                         noise=8.0, seed=seed)
+        Image.fromarray(img).save(plates / f"plate{tag}.png")
+    # one cell of the grid near the centre, clockwise from its top left
+    cols = len(np.unique(centres[:, 0]))
+    first = (len(centres) // 2 // cols) * cols + cols // 2
+    cell = [centres[first], centres[first + 1], centres[first + cols + 1], centres[first + cols]]
+    argv = ["--root", str(plates), "--name", "plate", "--clicks", *(str(c) for xy in cell for c in xy),
+            "--calib", "0.002"]
+    got, secs = {}, {}
+    for where, extra in (("card", ()), ("cpu", ("--cpu",))):
+        t0 = time.perf_counter()
+        got[where], _ = quiet(stereo_cal.main, argv + ["--save", str(tmp / f"cal_{where}"), *extra])
+        secs[where] = time.perf_counter() - t0
+    report = []
+    for cam in ("Left", "Right"):
+        (c_card, new_pts, pt1), (c_cpu, _, _) = got["card"]["points"][cam], got["cpu"]["points"][cam]
+        if len(c_card) != len(c_cpu) or len(c_card) < 0.9 * len(centres):
+            raise AssertionError(f"{cam}: {len(c_card)} crosses on the card, {len(c_cpu)} on the CPU, "
+                                 f"{len(centres)} on the plate")
+        centre_err = float(np.abs(c_card - c_cpu).max())
+        rel = new_pts - new_pts[pt1]
+        mx, my = nl_trans(rel[:, 0], rel[:, 1], got["card"][cam])
+        jx, jy = nl_trans(rel[:, 0], rel[:, 1], got["cpu"][cam])
+        map_err = float(torch.hypot(mx - jx, my - jy).max())
+        if not (centre_err <= 1e-3 and map_err <= CAL_ATOL):
+            raise AssertionError(f"{cam}: centres card vs CPU {centre_err:.3e} px, mappings {map_err:.3e} px "
+                                 f"(tolerances 1e-3, {CAL_ATOL})")
+        report.append(f"{cam} {len(c_card)} crosses, centres max diff {centre_err:.3e} px, mappings {map_err:.3e} px")
+    log(f"  stereo_cal --clicks, two {PLATE_SIZE}^2 plates of {len(centres)} crosses: card {secs['card']:.2f} s, "
+        f"--cpu {secs['cpu']:.2f} s; card vs CPU: " + "; ".join(report) + f" (tolerance {CAL_ATOL})")
+    return tmp / "cal_card" / "plate_coeff.json"
+
+
+def run_stereo(dev, ops, card, tmp: Path, coeff: Path) -> dict:
+    """``stereo_run`` with the trained v1 weights: ``direct`` on ``STEREO_N`` 1024^2 stereo pairs
+    with the calibration's coefficients (launches counted: two estimates a pair), its pairs/s
+    beside twice ``estimate`` alone and the card's idle share between estimates; ``manual``
+    on the same pairs within ``STEREO_ATOL``; identical views with identity coefficients and
+    theta +-45: W exactly 0, U and V ``estimate``'s flow; one 256^2 pair card vs ``--cpu``
+    within ``STEREO_CPU_ATOL``; ``reconstruct`` on the card beside the same arithmetic in numpy on
+    the host. Returns the launches of the direct run."""
+    from piv_liteflownet_tpu_torch import piv_liteflownet, stereo_run
+    from piv_liteflownet_tpu_torch.models.factory import PIV_V1
+    from piv_liteflownet_tpu_torch.run import load_image
+    from piv_liteflownet_tpu_torch.utils.checkpoint import load_params_npz
+    from piv_liteflownet_tpu_torch.utils.flow_io import read_flow
+
+    weights = str(Path(__file__).resolve().parent / TRAINED[1][0])
+    root = tmp / "stereo_pairs"
+    render_stereo_pairs(dev, root, STEREO_N, STEREO_SIZE, seed=43)
+    argv = ["--coeff", str(coeff), "--root", str(root), "--model", weights, "--theta", "45", "--calib", "0.001",
+            "--fps", "50"]
+    torch.cuda.synchronize()
+    reset_counts(ops)
+    t0 = time.perf_counter()
+    with EstimateEvents(stereo_run) as ev:
+        direct, _ = quiet(stereo_run.main, argv + ["--save", str(tmp / "st_direct"), "--inference-mode", "direct"])
+    torch.cuda.synchronize()
+    secs = time.perf_counter() - t0
+    counts = read_counts(ops)
+    want = forward_counts((6, 11, 6, 0), 2 * STEREO_N, bf16=False)
+    if counts != want or len(direct) != STEREO_N:
+        raise AssertionError(f"stereo_run direct launches {counts} (expected {want}), files {direct}")
+    idle_ms, idle = idle_share(ev.events)
+    t0 = time.perf_counter()
+    manual, _ = quiet(stereo_run.main, argv + ["--save", str(tmp / "st_manual")])
+    manual_s = time.perf_counter() - t0
+    err = max(float(np.abs(read_flow(a, use_stereo=True) - read_flow(b, use_stereo=True)).max())
+              for a, b in zip(direct, manual))
+    outs = [read_flow(a, use_stereo=True) for a in direct]
+    if [Path(p).name for p in direct] != [Path(p).name for p in manual] or not err <= STEREO_ATOL \
+            or not all(np.isfinite(o).all() and o.shape == (STEREO_SIZE, STEREO_SIZE, 3) for o in outs):
+        raise AssertionError(f"stereo_run direct vs manual {err:.3e} px (tolerance {STEREO_ATOL}): {direct} {manual}")
+
+    model = piv_liteflownet(load_params_npz(PIV_V1, weights), version=1)
+    l1, l2 = (torch.from_numpy(load_image(str(root / "left" / f"s00-L_img{k}.png"))).to(dev) for k in (1, 2))
+    est_ms = median_ms(lambda: stereo_run.estimate(model, l1, l2, tensor=True), 10)
+    log(f"  stereo_run direct, {STEREO_N} stereo pairs {STEREO_SIZE}^2, trained v1 weights, the calibration's "
+        f"coefficients: {secs:.2f} s, {STEREO_N / secs:.3f} stereo pairs/s; launches {counts}; the card idle "
+        f"between estimates {idle_ms:.1f} ms, {100 * idle:.1f} % of the span; two estimates alone "
+        f"{2 * est_ms:.3f} ms per stereo pair ({1e3 / (2 * est_ms):.3f} pairs/s); manual {manual_s:.2f} s, "
+        f"its files within {err:.3e} px of direct's (tolerance {STEREO_ATOL}); |U,V,W| max "
+        f"{max(float(np.abs(o).max()) for o in outs):.4f}  ({card})")
+
+    # reconstruction alone: on the card beside the same arithmetic in numpy on the host
+    coeffs = json.loads(coeff.read_text())
+    args = stereo_run.build_parser().parse_args(argv)
+    theta, beta = stereo_run._angles(args)
+    calib = stereo_run._calib(coeffs, args)
+    r1, r2 = (torch.from_numpy(load_image(str(root / "right" / f"s00-R_img{k}.png"))).to(dev) for k in (1, 2))
+    flows = [stereo_run.estimate(model, a, b, tensor=True)[0] for a, b in ((l1, l2), (r1, r2))]
+    host = [f.cpu().numpy() for f in flows]
+
+    def on_card():
+        return stereo_run.reconstruct(flows, coeffs, theta, beta, args.fps, calib)
+
+    got = on_card().cpu().numpy()
+    ref = numpy_reconstruct(host, coeffs, theta, beta, args.fps, calib)
+    ulps = int(np.max(np.abs(got.view(np.int32).astype(np.int64) - ref.view(np.int32).astype(np.int64))))
+    card_ms = median_ms(on_card, 20)
+    t0 = time.perf_counter()
+    for _ in range(5):
+        numpy_reconstruct(host, coeffs, theta, beta, args.fps, calib)
+    host_ms = (time.perf_counter() - t0) / 5 * 1e3
+    if ulps > 1:
+        raise AssertionError(f"reconstruct on the card is {ulps} float32 ulps from numpy's")
+    log(f"  reconstruct (dewarp float64, scaling, Willert float64) of one {STEREO_SIZE}^2 stereo pair: card "
+        f"{card_ms:.3f} ms (synchronised, median of 20), numpy on the host {host_ms:.3f} ms (mean of 5); card vs "
+        f"numpy within {ulps} float32 ulp  ({card})")
+
+    # identical views, identity coefficients, theta +-45: W = 0, (U, V) = estimate's flow
+    ident = tmp / "stereo_ident"
+    for cam, tag in (("left", "L"), ("right", "R")):
+        (ident / cam).mkdir(parents=True)
+        for i in range(2):
+            for k in (1, 2):
+                (ident / cam / f"s{i:02d}-{tag}_img{k}.png").write_bytes(
+                    (root / "left" / f"s{i:02d}-L_img{k}.png").read_bytes())
+    identity = [0.0] * 24
+    identity[0] = identity[8] = identity[13] = identity[20] = 1.0
+    (ident / "coeff.json").write_text(json.dumps({"Left": identity, "Right": identity}))
+    files, _ = quiet(stereo_run.main, ["--coeff", str(ident / "coeff.json"), "--root", str(ident), "--model", weights,
+                                       "--theta", "45", "--save", str(tmp / "st_ident"), "--inference-mode", "direct"])
+    for i, path in enumerate(files):
+        out = read_flow(path, use_stereo=True)
+        a, b = (torch.from_numpy(load_image(str(ident / "left" / f"s{i:02d}-L_img{k}.png"))).to(dev) for k in (1, 2))
+        flow = stereo_run.estimate(model, a, b, tensor=True)[0].cpu().numpy()
+        if not (np.array_equal(out[..., 2], np.zeros_like(out[..., 2])) and np.array_equal(out[..., :2], flow)):
+            raise AssertionError(f"identical views {path}: max |W| {np.abs(out[..., 2]).max()}, "
+                                 f"max |UV - flow| {np.abs(out[..., :2] - flow).max()}")
+    log(f"  identical views, identity coefficients, theta +-45 ({len(files)} pairs): W exactly 0, U and V "
+        f"bit-equal to estimate's flow")
+
+    # one small pair, the card against --cpu
+    small = tmp / "stereo_small"
+    render_stereo_pairs(dev, small, 1, 256, seed=44)
+    small_argv = ["--coeff", str(coeff), "--root", str(small), "--model", weights, "--theta", "40", "35",
+                  "--alpha", "2", "--inference-mode", "direct"]
+    (c_files, _), (p_files, _) = (quiet(stereo_run.main, small_argv + ["--save", str(tmp / f"st_small_{w}"), *x])
+                                  for w, x in (("card", ()), ("cpu", ("--cpu",))))
+    small_err = float(np.abs(read_flow(c_files[0], use_stereo=True) - read_flow(p_files[0], use_stereo=True)).max())
+    if not small_err <= STEREO_CPU_ATOL:
+        raise AssertionError(f"stereo_run 256^2 card vs CPU {small_err:.3e} px (tolerance {STEREO_CPU_ATOL})")
+    log(f"  stereo_run direct, one 256^2 stereo pair, card vs --cpu: max abs diff {small_err:.3e} px "
+        f"(tolerance {STEREO_CPU_ATOL})")
+    return counts
+
+
+def median_ms(fn, iters: int) -> float:
+    """Median ms of ``iters`` synchronised calls of ``fn`` after 2 warm-up calls (host clock)."""
+    for _ in range(2):
+        fn()
+    samples = []
+    for _ in range(iters):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        samples.append((time.perf_counter() - t0) * 1e3)
+    return float(np.median(samples))
+
+
+def run_extras(dev, ops, card, tmp: Path) -> dict:
+    """Phase 8: the remat step (``remat_case`` for piv v1 and v2, float32 and bf16), a profiler trace
+    of it, the port's own optimizers (``run_optimizers``), post-processing (``run_postpro``), stereo
+    calibration (``run_calibration``) and reconstruction (``run_stereo``). Needs phase 6's
+    directory in ``tmp``. Returns the launches of the remat steps and of ``stereo_run``."""
+    paths = {}
+    for version, dtype in REMAT_CASES:
+        case = remat_case(dev, ops, card, version, dtype)
+        if version == 1:
+            paths[PATH_REMAT if dtype is None else PATH_REMAT_BF16] = case["launches"]
+        if "state" in case:
+            check_trace(case["state"], case["step"], case["batch"])
+        del case
+    run_optimizers(dev, ops, tmp)
+    run_postpro(dev)
+    coeff = run_calibration(tmp)
+    paths[PATH_STEREO] = run_stereo(dev, ops, card, tmp, coeff)
+    return paths
+
+
 PARENT_SOURCES = ("backwarp.cu", "backwarp_bwd.cu", "corr49.cu", "corr49_bwd.cu", "corr49_bf16.cu",
                   "corr49_bwd_bf16.cu", "rgb_warp_norm.cu")
 
@@ -2910,6 +3426,10 @@ def main(argv=None) -> int:
         t7 = time.perf_counter()
         ingest_paths = run_ingest(dev, ops, card, trained, cli, Path(tmp))
         log(f"  phase 7 {time.perf_counter() - t7:.1f} s ({time.perf_counter() - t_start:.1f} s)")
+        log("phase 8: training extras, post-processing and stereo")
+        t8 = time.perf_counter()
+        extra_paths = run_extras(dev, ops, card, Path(tmp))
+        log(f"  phase 8 {time.perf_counter() - t8:.1f} s ({time.perf_counter() - t_start:.1f} s)")
 
     sources = {"corr49": "corr49.cu", "backwarp": "backwarp.cu", "rgb_warp_norm": "rgb_warp_norm.cu",
                "conv_chain": "conv_chain.cu", "backwarp_bwd": "backwarp_bwd.cu",
@@ -2940,6 +3460,7 @@ def main(argv=None) -> int:
     paths[CLI_PATH] = cli["launches"]
     paths[CLI_PATH_BF16] = cli["launches_bf16"]
     paths.update(ingest_paths)
+    paths.update(extra_paths)
     # each kernel's own path: where its launches are counted
     own = {"corr49": PATH_V1, "backwarp": PATH_V1, "rgb_warp_norm": PATH_V1,
            "conv_chain": PATH_V2_CHAIN, "backwarp_bwd": "train step piv v1 256^2 b8",

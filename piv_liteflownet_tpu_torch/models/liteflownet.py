@@ -36,6 +36,8 @@ from typing import Callable, List, Optional, Tuple
 
 import torch
 from torch import nn
+from torch.func import functional_call
+from torch.utils.checkpoint import checkpoint
 
 from piv_liteflownet_tpu_torch.ops import conv_chain, correlation, rgb_warp, warp
 from piv_liteflownet_tpu_torch.ops.nn import NEGATIVE_SLOPE, depthwise_deconv4x2, device_constant, leaky_relu, unfold
@@ -205,6 +207,20 @@ def _run_stack(stack: nn.Sequential, parts: List[torch.Tensor], ops: Ops, chain:
     return stack(parts[0] if len(parts) == 1 else torch.cat(parts, 1))
 
 
+def _call(module: nn.Module, remat: bool, *args):
+    """``module(*args)``; with ``remat`` under ``torch.utils.checkpoint``, its activations dropped
+    and recomputed in the backward.
+
+    The recompute calls the module on the parameters it sees now: under the bf16 step's
+    ``functional_call`` these are the bf16 casts, which are gone from the module by the time the
+    backward runs.
+    """
+    if not remat:
+        return module(*args)
+    params = dict(module.named_parameters())
+    return checkpoint(lambda *a: functional_call(module, params, a), *args, use_reentrant=False)
+
+
 def _depthwise_up(c: int) -> nn.ConvTranspose2d:
     return nn.ConvTranspose2d(c, c, 4, 2, 1, groups=c, bias=False)
 
@@ -352,7 +368,7 @@ class LiteFlowNet(nn.Module):
                 p.copy_(draw)
 
     def forward(self, img1: torch.Tensor, img2: torch.Tensor, ops: Ops = KERNEL_OPS,
-                train: bool = False):
+                train: bool = False, remat: bool = False):
         """``img1, img2 [B,3,H,W]`` in [0, 1], H and W multiples of 32.
 
         Eval (``train=False``): the flow ``[B,2,H',W']``, ``H' = H /
@@ -361,14 +377,19 @@ class LiteFlowNet(nn.Module):
         unscaled, and for version 2 a last ``[flow]`` resized to ``H x W``
         (port of JAX ``forward(train=True)``). The train forward never takes
         the forward-only conv chain.
+
+        ``remat``: each module call (NetC per frame, each NetC_ext call, each level's NetE-M, -S
+        and -R) runs under ``torch.utils.checkpoint``: the backward recomputes its activations,
+        so the forward's kernels launch twice per step. The gradients are the same function;
+        only the memory schedule differs (JAX wraps the whole forward in ``jax.checkpoint``).
         """
         cfg = self.cfg
         chain = cfg.conv_impl == "chain" and not train
         mean = device_constant(tuple(cfg.rgb_mean), img1.dtype, img1.device)
         x1 = (img1 - mean[:3].view(1, 3, 1, 1)).contiguous()
         x2 = (img2 - mean[3:].view(1, 3, 1, 1)).contiguous()
-        feat1 = self.NetC(x1)
-        feat2 = self.NetC(x2)
+        feat1 = _call(self.NetC, remat, x1)
+        feat2 = _call(self.NetC, remat, x2)
         pyr1, pyr2 = [x1], [x2]
         for li in range(1, 6):
             h, w = feat1[li].shape[2], feat1[li].shape[3]
@@ -383,12 +404,12 @@ class LiteFlowNet(nn.Module):
             if level <= 2:
                 # reference quirk: level 2 -> ext[0], level 1 -> ext[-1]
                 ext = self.NetC_ext[0 if level == 2 else cfg.n_ext - 1]
-                f1_in, f2_in = ext(feat1[li]), ext(feat2[li])
+                f1_in, f2_in = _call(ext, remat, feat1[li]), _call(ext, remat, feat2[li])
             else:
                 f1_in, f2_in = feat1[li], feat2[li]
-            flow_m = self.NetE_M[i](f1_in, f2_in, flow, ops, chain)
-            flow_s = self.NetE_S[i](f1_in, f2_in, flow_m, ops, chain)
-            flow = self.NetE_R[i](pyr1[li], pyr2[li], feat1[li], flow_s, ops, chain)
+            flow_m = _call(self.NetE_M[i], remat, f1_in, f2_in, flow, ops, chain)
+            flow_s = _call(self.NetE_S[i], remat, f1_in, f2_in, flow_m, ops, chain)
+            flow = _call(self.NetE_R[i], remat, pyr1[li], pyr2[li], feat1[li], flow_s, ops, chain)
             train_out.append([flow_m, flow_s, flow])
         if train:
             if cfg.version == 2:

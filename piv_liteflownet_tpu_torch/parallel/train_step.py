@@ -22,8 +22,12 @@ outputs go back to float32 before the loss, and the loss and the optimizer
 state stay float32. Not ``torch.autocast``, which keeps some ops in float32
 and casts per op: another function than JAX's.
 
-Not ported yet (ROADMAP.md): ``mesh`` (data-parallel over several cards) and
-``remat``.
+``remat=True`` checkpoints each module call of the forward
+(``LiteFlowNet.forward(remat=True)``): the backward recomputes the
+activations, in float32 and in the mixed bf16 step, under the same
+``f32_convs`` pinning as the forward. The gradients are the same function.
+
+Not ported yet (ROADMAP.md): ``mesh`` (data-parallel over several cards).
 """
 
 from __future__ import annotations
@@ -67,13 +71,13 @@ def _on(a, device: torch.device) -> torch.Tensor:
     return t.to(device=device, dtype=torch.float32)
 
 
-def _forward(model: LiteFlowNet, x1, x2, ops: Ops, compute_dtype):
+def _forward(model: LiteFlowNet, x1, x2, ops: Ops, compute_dtype, remat: bool):
     """The train forward, in ``compute_dtype`` (None: the params' float32) with float32 outputs."""
     if compute_dtype is None:
-        return model(x1, x2, ops, train=True)
+        return model(x1, x2, ops, train=True, remat=remat)
     params = {n: p.to(compute_dtype) for n, p in model.named_parameters()}
     out = functional_call(model, params, (x1.to(compute_dtype), x2.to(compute_dtype), ops),
-                          {"train": True})
+                          {"train": True, "remat": remat})
     return [[o.float() for o in level] for level in out]
 
 
@@ -85,12 +89,12 @@ def make_train_step(cfg: ModelConfig, loss_obj, optimizer: torch.optim.Optimizer
     With ``pipeline`` the step augments the batch on the model's device first, drawing from
     ``rng`` (a seed or a ``torch.Generator``; required). ``ops`` picks the kernels (default)
     or their plain versions (``PLAIN_OPS``). The forward and backward convs run in full
-    float32 whatever torch's TF32 flags say.
+    float32 whatever torch's TF32 flags say; with ``remat`` the backward's recompute too.
     ``compute_dtype``: None or ``torch.float32`` (the float32 step) or ``torch.bfloat16``
     (mixed precision, the module docstring); the kernels take no other dtype. The step
     carries it as ``step.compute_dtype`` (``torch.float32`` for the float32 step).
     """
-    _not_ported(mesh=mesh, remat=remat)
+    _not_ported(mesh=mesh)
     if compute_dtype == torch.float32:
         compute_dtype = None
     if compute_dtype not in (None, torch.bfloat16):
@@ -112,7 +116,7 @@ def make_train_step(cfg: ModelConfig, loss_obj, optimizer: torch.optim.Optimizer
         x1, x2, t = (to_nchw(a, device) for a in (img1, img2, target))
         optimizer.zero_grad(set_to_none=True)
         with f32_convs():
-            lossvalue, epevalue = loss_obj(_forward(model, x1, x2, ops, compute_dtype), t)
+            lossvalue, epevalue = loss_obj(_forward(model, x1, x2, ops, compute_dtype, remat), t)
             lossvalue, epevalue = _summed(lossvalue), _summed(epevalue)
             lossvalue.backward()
         optimizer.step()

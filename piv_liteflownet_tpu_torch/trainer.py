@@ -16,8 +16,10 @@ the device, then runs ``Train``::
 runs on the CUDA card unless ``--cpu`` is given. ``--native_io`` decodes the
 training triplets with libpivio's C threads (``data/native.py``) where its
 decoders take the dataset's formats, and raises if the library cannot be
-built. ``--number_devices`` above 1 and the optimizers ``torch.optim`` lacks
-raise ``NotImplementedError`` (ROADMAP.md).
+built. ``--optimizer`` takes every name of the JAX registry: ``torch.optim``'s
+and the port's own Lion, Lamb, Yogi and Novograd (``training/optim.py``).
+``--number_devices`` above 1 raises ``NotImplementedError`` (multi-GPU,
+ROADMAP.md).
 
 ``Train`` takes a dict of loaders keyed ``"train"`` and ``"val"``; each is
 a sized iterable of numpy batches ``((im1, im2), target)`` with ``im

@@ -27,3 +27,29 @@ def particle_pair(b: int, h: int, w: int, seed: int, shift=(2.5, -1.5), density=
     frames = np.clip(frames, 0.0, 1.0)
     rgb = np.repeat(frames[..., None], 3, axis=-1)
     return rgb[0], rgb[1]
+
+
+def calibration_plate(h: int, w: int, pitch: int = 40, A=None, template=(5, 25, 25),
+                      noise: float = 0.0, seed: int = 0):
+    """A synthetic stereo calibration plate: ``gen_template`` crosses on a square grid of
+    ``pitch`` px, seen through the rational mapping ``A`` (24 coefficients, anchored at the
+    image centre; None: the identity) by ``warp_image``, with Gaussian noise of ``noise`` grey
+    levels. Returns the uint8 ``[h,w]`` image and the crosses' ``[N,2]`` (x, y) centres on the
+    undistorted plate."""
+    from piv_liteflownet_tpu_torch.stereo.dewarp import warp_image
+    from piv_liteflownet_tpu_torch.stereo.matching import gen_template
+
+    tc, hc, lc = template
+    cross = gen_template(TC=tc, HC=hc, LC=lc)
+    plate = np.zeros((h, w), np.uint8)
+    centres = []
+    for cy in range(pitch, h - pitch + 1, pitch):
+        for cx in range(pitch, w - pitch + 1, pitch):
+            plate[cy - hc // 2: cy - hc // 2 + hc, cx - lc // 2: cx - lc // 2 + lc] = cross
+            centres.append((cx, cy))
+    if A is not None:
+        plate = warp_image(plate, np.array([[w / 2, h / 2]]), 0, A).numpy()
+    if noise:
+        rng = np.random.default_rng(seed)
+        plate = np.clip(plate + noise * rng.standard_normal(plate.shape), 0, 255).astype(np.uint8)
+    return plate, np.asarray(centres, np.float64)

@@ -16,6 +16,7 @@ plain path's, and the launch counts show that autograd went through the
 kernels' ``torch.autograd.Function``s. Inputs are made with numpy from seeds.
 """
 
+import copy
 import json
 import os
 
@@ -215,11 +216,18 @@ def test_train_forward_loss_and_grads_match_jax(family, jax_train):
                                    levels[-1][-1].detach() * CFGS[family].scale_factor(1))
 
 
-@pytest.mark.parametrize("optimizer,kw", [
-    ("Adam", {}), ("AdamW", {}), ("SGD", {"momentum": 0.9}),
+#: a parameter set to zeros on both sides: Lamb's trust ratio is 1 where ||p|| is 0
+ZEROED = "NetE_R.3.conv_R.0.bias"
+
+
+@pytest.mark.parametrize("optimizer,kw,zeroed", [
+    ("Adam", {}, None), ("AdamW", {}, None), ("SGD", {"momentum": 0.9}, None),
+    ("Lion", {}, None), ("Lamb", {}, None), ("Yogi", {}, None), ("Novograd", {}, None),
+    ("Lamb", {}, ZEROED),
 ])
-def test_optimizer_steps_match_jax(jax_train, optimizer, kw):
-    """Two steps of the four-group optimizer, fed the same (JAX) gradients on both sides."""
+def test_optimizer_steps_match_jax(jax_train, optimizer, kw, zeroed):
+    """Two steps of the four-group optimizer, fed the same (JAX) gradients on both sides, with
+    the default weight decay (4e-4 on the weights)."""
     import jax
     import optax
 
@@ -228,6 +236,9 @@ def test_optimizer_steps_match_jax(jax_train, optimizer, kw):
     ref = jax_train["piv"]
     cfg = CFGS["piv"]
     params = dict(ref["params"])
+    if zeroed:
+        params[zeroed] = np.zeros_like(params[zeroed])
+    start = {k: np.asarray(v) for k, v in params.items()}
     tx, _ = jmake_optimizer(params, cfg.lowest_level, optimizer=optimizer, **kw)
     opt_state = tx.init(params)
 
@@ -240,20 +251,38 @@ def test_optimizer_steps_match_jax(jax_train, optimizer, kw):
         params, opt_state = jstep(params, opt_state)
     want = from_jax_params(cfg, {k: np.asarray(v) for k, v in params.items()})
 
-    model = _ported("piv", ref["params"])
+    model = _ported("piv", start)
     opt = toptim.make_optimizer(model, cfg.lowest_level, optimizer=optimizer, **kw)
+    assert type(opt).__name__ == optimizer
     grads = from_jax_params(cfg, ref["grads"])
     for _ in range(2):
         for name, p in model.named_parameters():
             p.grad = grads[name].clone()
         opt.step()
     got = model.state_dict()
+    before = from_jax_params(cfg, start)
     moved = 0
     for name, w in want.items():
         np.testing.assert_allclose(got[name].numpy(), w.numpy(), rtol=0, atol=1e-6, err_msg=name)
-        moved += not np.array_equal(w.numpy(), from_jax_params(cfg, ref["params"])[name].numpy())
+        moved += not np.array_equal(w.numpy(), before[name].numpy())
     # Adam's first steps move every parameter by about lr; SGD's can be below float resolution
     assert moved == len(want) if optimizer != "SGD" else moved > 0
+    if optimizer in ("Adam", "AdamW", "SGD"):
+        return
+    # the port's own optimizers keep their step count on the parameters' device, and their
+    # state round-trips through a state dict: a third step after a reload equals an unbroken one
+    state = copy.deepcopy(opt.state_dict())
+    assert all(float(st["count"]) == 2.0 for st in state["state"].values())
+    again = _ported("piv", start)
+    again.load_state_dict(got)
+    opt2 = toptim.make_optimizer(again, cfg.lowest_level, optimizer=optimizer, **kw)
+    opt2.load_state_dict(state)
+    for m, o in ((model, opt), (again, opt2)):
+        for name, p in m.named_parameters():
+            p.grad = grads[name].clone()
+        o.step()
+    for (name, a), b in zip(model.named_parameters(), again.parameters()):
+        assert torch.equal(a, b), name
 
 
 def test_param_groups_match_jax_labels(jax_train):
@@ -295,13 +324,20 @@ def test_set_group_lrs_and_unported_optimizers():
     toptim.set_group_lrs(opt, {"w_hi": 0.5, "b_lo": 0.25})
     assert {g["name"]: g["lr"] for g in opt.param_groups} == {
         "w_lo": 6e-5, "w_hi": 0.5, "b_lo": 0.25, "b_hi": 1e-3}
-    for name in toptim.NOT_PORTED:
-        with pytest.raises(NotImplementedError, match="ROADMAP.md"):
-            toptim.make_optimizer(model, 2, optimizer=name)
+    # the port's own optimizers take their arguments by name, case-insensitively, as the rest
+    for name, kw in (("lion", {"betas": [0.8, 0.9], "eps": 1.0}), ("LAMB", {"eps": 1e-4}),
+                     ("yogi", {"betas": (0.5, 0.6)}), ("novograd", {"eps": 1e-3, "momentum": 0.5})):
+        opt = toptim.make_optimizer(model, 2, optimizer=name, **kw)
+        assert type(opt).__name__.lower() == name.lower()
+        for key, value in kw.items():
+            if key in opt.defaults:
+                assert opt.defaults[key] == (tuple(value) if isinstance(value, list) else value)
+        assert ("eps" in opt.defaults) == (name != "lion")
     with pytest.raises(ValueError, match="unknown optimizer"):
         toptim.make_optimizer(model, 2, optimizer="Sgdx")
-    # make_train_step(pipeline=...) is ported (tests/test_torch_trainer_cli.py)
-    for option in ({"mesh": object()}, {"remat": True}, {"compute_dtype": torch.float16}):
+    # make_train_step(pipeline=...) and (remat=True) are ported (tests/test_torch_trainer_cli.py,
+    # test_remat_*)
+    for option in ({"mesh": object()}, {"compute_dtype": torch.float16}):
         with pytest.raises(NotImplementedError, match="ROADMAP.md"):
             make_train_step(model.cfg, tloss.hui_loss(), opt, **option)
 
@@ -335,7 +371,10 @@ def _fake_kernels(monkeypatch):
         monkeypatch.setattr(mod, "bwd_launches", 0)
 
 
-def _counts():
+def _counts(bf16=False):
+    if bf16:
+        return ((correlation.bf16_launches, warp.bf16_launches, rgb_warp.bf16_launches),
+                (correlation.bwd_bf16_launches, warp.bwd_bf16_launches))
     return ((correlation.launches, warp.launches, rgb_warp.launches),
             (correlation.bwd_launches, warp.bwd_launches))
 
@@ -368,6 +407,59 @@ def test_train_step_through_faked_kernels(monkeypatch, family, fwd, bwd):
                                    atol=1e-6 * float(g.abs().max()), msg=n)
     for n, p in results["plain"][3].items():
         torch.testing.assert_close(results["kernel"][3][n], p, rtol=0, atol=1e-6, msg=n)
+
+
+def test_remat_grads_match_jax(jax_train):
+    """``forward(remat=True)``: the train forward under ``torch.utils.checkpoint``; loss and
+    gradients held to ``jax.grad`` at the gate's tolerances."""
+    ref = jax_train["piv"]
+    model = _ported("piv", ref["params"])
+    img1, img2, target = (_nchw(a) for a in ref["inputs"])
+    levels = model(img1, img2, PLAIN_OPS, train=True, remat=True)
+    lossvalue, _ = LOSSES["piv"]()(levels, target)
+    lossvalue.backward()
+    np.testing.assert_allclose(float(lossvalue.detach()), ref["loss"], rtol=1e-4)
+    want_grads = from_jax_params(CFGS["piv"], ref["grads"])
+    for name, p in model.named_parameters():
+        want = want_grads[name].numpy()
+        np.testing.assert_allclose(p.grad.numpy(), want, rtol=GRAD_RTOL,
+                                   atol=GRAD_ATOL_REL * float(np.abs(want).max()), err_msg=name)
+
+
+@pytest.mark.parametrize("compute_dtype", [None, torch.bfloat16])
+def test_remat_step_equals_the_step_without_it(monkeypatch, compute_dtype):
+    """``make_train_step(remat=True)`` in float32 and mixed bf16: the loss, every gradient and
+    every updated parameter equal the step without remat bit for bit on the plain path (the
+    recompute repeats the same CPU ops); through the faked kernels, every forward kernel
+    launches twice as often (the recompute) and every backward kernel as often."""
+    img1, img2, target = _batch(2, 64, 96, seed=11)
+    results = {}
+    for ops in (PLAIN_OPS, KERNEL_OPS):
+        if ops is KERNEL_OPS:
+            _fake_kernels(monkeypatch)
+        for remat in (False, True):
+            model = piv_liteflownet(seed=2, device="cpu")
+            opt = toptim.make_optimizer(model, model.cfg.lowest_level)
+            step = make_train_step(model.cfg, tloss.piv_loss(), opt, ops=ops, remat=remat,
+                                   compute_dtype=compute_dtype)
+            for mod in (correlation, warp, rgb_warp):
+                mod.launches = mod.bf16_launches = 0
+            for mod in (correlation, warp):
+                mod.bwd_launches = mod.bwd_bf16_launches = 0
+            _, metrics = step(TrainState(model, opt), img1, img2, target)
+            results[ops is KERNEL_OPS, remat] = (
+                _counts(compute_dtype is not None), metrics["loss"], {n: p.grad.clone() for n, p in model.named_parameters()},
+                model.state_dict())
+    for kernel in (False, True):
+        (counts, loss, grads, params), (r_counts, r_loss, r_grads, r_params) = (
+            results[kernel, False], results[kernel, True])
+        if kernel:
+            assert counts == ((6, 11, 6), (6, 11))
+            assert r_counts == (tuple(2 * c for c in counts[0]), counts[1])
+        assert torch.equal(r_loss, loss)
+        for name in grads:
+            assert torch.equal(r_grads[name], grads[name]), name
+            assert torch.equal(r_params[name], params[name]), name
 
 
 # -- the epoch loop, checkpoints and resume ---------------------------------------------------

@@ -167,8 +167,39 @@ def test_main_loads_pretrained_weights(dataset, tmp_path):
     assert to_jax_params(PIV_V1, want).keys() == set(np.load(str(tmp_path / "w.npz")).files)
 
 
-@pytest.mark.parametrize("flags", [["--optimizer", "Yogi"], ["--number_devices", "2"], ["--optimizer", "Lion"],
-                                   ["--optimizer", "Novograd"]])
+@pytest.mark.parametrize("flags", [["--number_devices", "2"]])
 def test_main_raises_for_what_is_not_ported(dataset, tmp_path, flags):
     with pytest.raises(NotImplementedError, match="ROADMAP.md"):
         main(_argv(dataset, tmp_path, "--total_epochs", "0", *flags))
+
+
+@pytest.mark.parametrize("name,flags,want", [
+    ("Yogi", ["--optimizer_betas", "0.8", "0.95", "--optimizer_eps", "1e-4"], {"betas": (0.8, 0.95), "eps": 1e-4}),
+    ("Lion", ["--optimizer_betas", "0.85", "0.9"], {"betas": (0.85, 0.9)}),
+    ("Novograd", ["--optimizer_eps", "1e-6"], {"betas": (0.9, 0.25), "eps": 1e-6}),
+    ("Lamb", ["--optimizer_betas", "0.7", "0.9", "--optimizer_eps", "1e-5"], {"betas": (0.7, 0.9), "eps": 1e-5}),
+])
+def test_main_builds_the_ports_own_optimizers(dataset, tmp_path, name, flags, want):
+    trainer = main(_argv(dataset, tmp_path, "--total_epochs", "0", "--optimizer", name, *flags))
+    opt = trainer.state.optimizer
+    assert type(opt).__name__ == name
+    for key, value in want.items():
+        assert opt.defaults[key] == value and all(g[key] == value for g in opt.param_groups)
+    assert {g["name"]: g["weight_decay"] for g in opt.param_groups} == {
+        "w_lo": 4e-4, "w_hi": 4e-4, "b_lo": 0.0, "b_hi": 0.0}
+
+
+@pytest.mark.parametrize("name", ["Novograd", "Yogi"])
+def test_main_resumes_the_ports_own_optimizers_as_an_unbroken_run(dataset, tmp_path, name):
+    """Their step counts and moments go through the checkpoint: a resumed Novograd does not
+    take its first-step branch again, a resumed Yogi keeps its bias correction's count."""
+    flags = ("--optimizer", name, "--backup_frequency", "1")
+    main(_argv(dataset, tmp_path / "a", "--total_epochs", "1", *flags))
+    resumed = main(_argv(dataset, tmp_path / "b", "--total_epochs", "2", *flags,
+                         "--resume", str(tmp_path / "a" / "backup_1")))
+    unbroken = main(_argv(dataset, tmp_path / "u", "--total_epochs", "2", *flags))
+    assert _losses(resumed) == _losses(unbroken)[1:]
+    for a, b in zip(resumed.state.model.parameters(), unbroken.state.model.parameters()):
+        assert torch.equal(a, b)
+    for st in resumed.state.optimizer.state.values():
+        assert float(st["count"]) == 2.0
