@@ -17,7 +17,7 @@ and ``python -m piv_liteflownet_tpu_torch.trainer``'s ``main``; ``run``,
 ``evaluate`` and the pack CLI's ``main``; ``make_train_step(remat=True)``,
 Lion/Lamb/Yogi/Novograd, ``utils/profiling.trace``, ``postpro``,
 ``stereo_cal`` and ``stereo_run``) at full width with seeded random weights
-and the tracked trained ones, in eight phases; each raises on failure, and
+and the tracked trained ones, in nine phases; each raises on failure, and
 then the script exits non-zero without the final line.
 
 1. Card and build: the card's name and power limit (nvidia-smi), and the
@@ -54,7 +54,10 @@ then the script exits non-zero without the final line.
    form bit-equal to the first; ``backwarp``'s bf16 form also at odd widths and
    channel counts (5, 7, 33, 192), widths a multiple of 8 and a tensor 2 bytes
    off 16, its count of tiles that gathered directly held to
-   ``ops/warp.py:staged_tiles`` and both of its paths required. Then, the
+   ``ops/warp.py:staged_tiles`` and both of its paths required. Both forms of
+   ``backwarp`` also on slabs (``SLAB_CASES``: an image taller than the output
+   rows, which start at its row ``row0``, as the halo warp and its fallback
+   give it), at both strides, held as above. Then, the
    same way through autograd, the bf16 forms of the two backward kernels:
    ``backwarp_bwd`` at the level-1 shape of a 256^2 batch-8 training step at
    both strides with a smooth and a 30 px random flow, at odd sizes and
@@ -238,6 +241,26 @@ then the script exits non-zero without the final line.
    estimates), identical views with identity coefficients (W exactly 0, U
    and V ``estimate``'s flow), one 256^2 pair card against ``--cpu`` (1e-3 px),
    and ``reconstruct`` on the card beside the same arithmetic in numpy.
+9. Multi-GPU on the one card (``run_multi_gpu``): a mesh of one rank over
+   NCCL under the train step and ``estimate`` (bit-equal to the calls
+   without a mesh); then two ranks sharing the card over gloo
+   (``parallel/mesh.py:spawn``, ``multi_gpu_rank``; NCCL refuses two ranks on
+   one device, so NCCL between cards is not shown): the data-parallel step
+   of piv v1 at 256^2 b8 (4 rows a rank) in float32 (each gradient within
+   1e-5 of its parameter's max |grad| of one process's step on the batch)
+   and bf16 (``training/precision.py:grad_relation`` against the float32
+   step, as the one-process bf16 step; the worst gradient in bf16 ulps
+   printed), each rank launching what one process's step launches; the
+   trainer's rank loop for an epoch of phase 6's directory (losses within
+   1e-3 relative of one process's, checkpoints from rank 0 only); ``run``'s
+   rank function on 8 of phase 7's pairs (files within 1e-4 px); spatial
+   ``estimate`` of piv v1 with the trained weights at 2048x1024 in float32
+   and bf16, cuDNN and chain (within 1e-4 px of the unsharded call; K1 and
+   K4 on slabs, K6 with the chain, no K3; only halo rows exchanged); a
+   warp whose flow leaves the halo on one rank alone (every rank gathers,
+   the result the unsharded warp's). Times and memory of these ranks are of
+   two processes sharing one card, never a multi-card number.
+   ``--multi-gpu-only`` runs phases 1 and 9 alone.
 
 The line before the last is ``{"kernels": [...]}`` (``launches``: per call of
 each kernel's own path, the piv v1 estimate for the forward kernels, the
@@ -246,7 +269,8 @@ backward ones, the piv v1 bf16 estimate for the forward ``_bf16`` forms,
 the piv v1 bf16 chain estimate for ``conv_chain_bf16``, the piv v1 bf16
 train step for the backward ones; ``launches_per_train_step`` of the float32 piv v1 step and
 ``launches_by_path`` for all twelve C entry points, the trainer CLI's runs, ``evaluate``'s and ``run``'s,
-the float32 and bf16 piv v1 remat steps and ``stereo_run direct`` among the paths); the last line is
+the float32 and bf16 piv v1 remat steps, ``stereo_run direct`` and phase 9's paths, per rank, among
+them); the last line is
 ``{"ok": true, "device": {...}}``. Without a CUDA device it exits 2 and
 prints no result. It needs no argument; ``--parent DIR`` adds the parent's
 warp, rgb warp-norm and cost-volume kernels to phases 2, 4 and 5.
@@ -386,6 +410,14 @@ def chain_work(parts_c, weights, b, h, w):
     return nbytes, 2 * macs
 
 
+#: (b, c, image rows, w, stride, |flow|, output rows, row0) of K4 on slabs (``ops/halo_warp.py``):
+#: the halo slab of rank 1 of 2 at level 1 of a 2048x1024 pair (1024 rows and 32 of each
+#: neighbour's), at both strides; the gather fallback's whole map, rank 1's rows; odd sizes
+SLAB_CASES = [(1, 64, 1088, 1024, 1, 8.0, 1024, 32), (1, 64, 1088, 1024, 2, 8.0, 512, 32),
+              (1, 64, 2048, 1024, 1, 40.0, 1024, 1024), (1, 64, 2048, 1024, 2, 40.0, 512, 1024),
+              (2, 5, 45, 53, 1, 12.0, 13, 16), (2, 7, 45, 53, 2, 12.0, 7, 16)]
+
+
 def check_kernels(dev, ops):
     corr, warp, _, chain = ops
     errs = {"corr49": 0.0, "backwarp": 0.0, "rgb_warp_norm": 0.0, "backwarp_bwd": 0.0,
@@ -447,6 +479,15 @@ def check_kernels(dev, ops):
         want = warp.backwarp_plain(img, flow, s)
         record("backwarp", f"[{b},{c},{h},{w}] stride {s} |flow|<={mag:g}",
                float((got - want).abs().max()), WARP_ATOL)
+    for b, c, h, w, s, mag, ho, row0 in SLAB_CASES:
+        seed += 1
+        img = randn((b, c, h, w), seed, dev)
+        flow = uniform((b, 2, ho, warp.out_hw(h, w, s)[1]), seed + 1000, dev, -mag, mag)
+        got = warp.backwarp(img, flow, s, row0)
+        torch.cuda.synchronize()
+        record("backwarp", f"slab [{b},{c},{h},{w}] stride {s}, {ho} rows from {row0}, |flow|<={mag:g}",
+               float((got - warp.backwarp_plain(img, flow, s, row0)).abs().max()), WARP_ATOL)
+        del img, flow, got
     # the backward kernels, through autograd: at the 1024^2 level shapes and at the
     # 256^2 batch-8 training shapes, with steep flows, and at odd sizes far outside
     bwd_warp_cases = list(warp_cases[:11])  # the 1024^2 level shapes
@@ -627,6 +668,24 @@ def check_bf16_kernels(dev, ops):
                             f"tile rule says {int(rule.sum())}")
         hold("backwarp_bf16", f"[{b},{c},{h},{w}] stride {s} " + ("2 bytes off, |flow|<=3" if off else f"|flow|<={mag:g}")
              + f", {n_direct}/{rule.numel()} direct", got, warp.backwarp_plain(img.float(), flow.float(), s), WARP_ATOL)
+        del img, flow, got
+    for b, c, h, w, s, mag, ho, row0 in SLAB_CASES:
+        seed += 1
+        img = randn((b, c, h, w), seed, dev).to(bf)
+        flow = uniform((b, 2, ho, warp.out_hw(h, w, s)[1]), seed + 1000, dev, -mag, mag).to(bf)
+        direct_counter.zero_()
+        got = warp.backwarp(img, flow, s, row0)
+        torch.cuda.synchronize()
+        rule = warp.staged_tiles(flow.float(), h, w, s, row0=row0)
+        n_direct = int(direct_counter.item())
+        warp_tiles["direct"] += n_direct
+        warp_tiles["staged"] += rule.numel() - n_direct
+        if n_direct != int(rule.sum()):
+            failures.append(f"backwarp_bf16 slab [{b},{c},{h},{w}] stride {s} from {row0}: {n_direct} tiles "
+                            f"gathered directly, the tile rule says {int(rule.sum())}")
+        hold("backwarp_bf16", f"slab [{b},{c},{h},{w}] stride {s}, {ho} rows from {row0}, |flow|<={mag:g}, "
+             f"{n_direct}/{rule.numel()} direct", got,
+             warp.backwarp_plain(img.float(), flow.float(), s, row0), WARP_ATOL)
         del img, flow, got
     log(f"  backwarp_bf16 tiles over these cases: {warp_tiles} (each direct count equal to "
         f"ops/warp.py:staged_tiles)")
@@ -3341,6 +3400,370 @@ def run_extras(dev, ops, card, tmp: Path) -> dict:
     return paths
 
 
+# -- phase 9: multi-GPU -----------------------------------------------------------------------
+MULTI_RANKS = 2  # two ranks over gloo on the one card: NCCL refuses two ranks on one device
+SPATIAL_H, SPATIAL_W = 2048, 1024
+#: px: the spatial estimate against the unsharded call, or, where larger, twice the unsharded float32
+#: call's own distance from its float64 plain-ops twin (a warp's float32 sample row at 2048 rows
+#: rounds to half an ulp of 2048, 1.2e-4 px; a slab's row is smaller), and in bf16 the unsharded bf16
+#: call's distance from the float32 one
+SPATIAL_ATOL = 1e-4
+DP_STEPS = 5  # timed steps of each rank; 2 more warm up
+SPATIAL_ITERS = 3  # timed spatial estimates of each variant; one more warms up
+DP_CLI_PAIRS = 8  # run --num_devices 2 over the first pairs of phase 7's directory
+FALLBACK_V = 40.0  # px: one v beyond the halo (32) in rank 1's rows alone
+SPATIAL_VARIANTS = (("float32", "cudnn"), ("float32", "chain"), ("bf16", "cudnn"), ("bf16", "chain"))
+PATH_NCCL1 = "train step + estimate, mesh of 1 rank (NCCL), piv v1"
+PATH_DP = "data-parallel train step piv v1 256^2 b8, 2 gloo ranks on one card (per rank)"
+PATH_DP_BF16 = "data-parallel train step piv v1 256^2 b8 bf16, 2 gloo ranks on one card (per rank)"
+PATH_DP_CLI = "trainer --number_devices 2 rank loop piv v1 256^2 b8, 1 epoch (per rank)"
+PATH_DP_RUN = "run --num_devices 2 rank function, 8 pairs 1024^2 b2 (per rank)"
+PATH_SPATIAL = "spatial estimate piv v1 2048x1024, 2 gloo ranks on one card (per rank)"
+
+
+def launched(counts: dict) -> dict:
+    """The entry points of ``counts`` that launched."""
+    return {k: v for k, v in counts.items() if v}
+
+
+def dp_batch(dev):
+    """Phase 5's training batch: piv v1 256^2 b8 particle pairs shifted by (2.5, -1.5) px."""
+    from piv_liteflownet_tpu_torch.utils.synthetic import particle_pair
+
+    shift = (2.5, -1.5)
+    im1, im2 = particle_pair(TRAIN_B, TRAIN_H, TRAIN_W, seed=20, shift=shift)
+    target = np.empty((TRAIN_B, TRAIN_H, TRAIN_W, 2), np.float32)
+    target[...] = shift
+    return tuple(torch.from_numpy(a).to(dev) for a in (im1, im2, target))
+
+
+def dp_step_run(dev, ops, mesh, batch, dtype, steps: int = DP_STEPS) -> dict:
+    """piv v1 (seed 0) and Adam: one step with the counts set to 0 around it (loss, gradients,
+    launches), then ``steps`` timed steps after 2 more (ms each, peak memory)."""
+    from piv_liteflownet_tpu_torch import piv_liteflownet
+    from piv_liteflownet_tpu_torch.parallel.mesh import shard_rows
+    from piv_liteflownet_tpu_torch.parallel.train_step import TrainState, make_train_step
+    from piv_liteflownet_tpu_torch.training.loss import piv_loss
+    from piv_liteflownet_tpu_torch.training.optim import make_optimizer
+
+    model = piv_liteflownet(version=1, seed=0, device=dev)
+    opt = make_optimizer(model, model.cfg.lowest_level)
+    step = make_train_step(model.cfg, piv_loss(), opt, mesh=mesh, compute_dtype=dtype)
+    state = TrainState(model, opt)
+    mine = tuple(shard_rows(mesh, a) for a in batch) if mesh is not None else batch
+    torch.cuda.synchronize()
+    reset_counts(ops)
+    state, metrics = step(state, *mine)
+    torch.cuda.synchronize()
+    out = {"counts": read_counts(ops), "loss": float(metrics["loss"]), "epe": float(metrics["epe"]),
+           "grads": {n: p.grad.detach().clone() for n, p in model.named_parameters()}}
+    state, _, samples, peak = steps_on_one_batch(dev, step, state, mine, steps)
+    out.update(ms=samples, peak_gib=peak / 2**30)
+    return out
+
+
+def spatial_frames(dev):
+    """A 2048x1024 particle pair shifted by (2.5, -1.5) px, NHWC on ``dev``."""
+    from piv_liteflownet_tpu_torch.utils.synthetic import particle_pair
+
+    im1, im2 = particle_pair(1, SPATIAL_H, SPATIAL_W, seed=31)
+    return torch.from_numpy(im1).to(dev), torch.from_numpy(im2).to(dev)
+
+
+def spatial_model(dev, dtype: str, impl: str):
+    """piv v1 with the tracked trained weights, in ``dtype``, NetE stacks through ``impl``."""
+    from types import SimpleNamespace
+
+    from piv_liteflownet_tpu_torch import piv_liteflownet
+    from piv_liteflownet_tpu_torch.models.factory import config
+    from piv_liteflownet_tpu_torch.run import load_weights
+
+    root = Path(__file__).resolve().parent
+    state, _ = load_weights(SimpleNamespace(params=str(root / TRAINED[1][0]), model="piv"), config("piv", 1))
+    model = piv_liteflownet(state, version=1, device=dev, conv_impl=impl)
+    return model.to(torch.bfloat16) if dtype == "bf16" else model
+
+
+def spatial_run(dev, ops, t1, t2, dtype: str, impl: str, spatial_mesh=None) -> dict:
+    """One estimate with the counts set to 0 around it (its flow, launches, traffic, peak memory),
+    then ``SPATIAL_ITERS`` timed ones after a warm-up."""
+    from piv_liteflownet_tpu_torch.inference import estimate
+
+    model = spatial_model(dev, dtype, impl)
+    call = lambda: estimate(model, t1, t2, tensor=True, spatial_mesh=spatial_mesh)  # noqa: E731
+    torch.cuda.synchronize()
+    if spatial_mesh is not None:
+        spatial_mesh.traffic.reset()
+    reset_counts(ops)
+    torch.cuda.reset_peak_memory_stats(dev)
+    base = torch.cuda.memory_allocated(dev)
+    flow = call().float()
+    torch.cuda.synchronize()
+    out = {"flow": flow, "counts": read_counts(ops), "peak_gib": (torch.cuda.max_memory_allocated(dev) - base) / 2**30}
+    if spatial_mesh is not None:
+        tr = spatial_mesh.traffic
+        out.update(sent=tr.halo_sent, received=tr.halo_received, exchanges=len(tr.halo),
+                   gathers=sorted({g[0] for g in tr.gathers}), gather_bytes=sum(g[1] for g in tr.gathers),
+                   bound_ok=all(r[5] <= (r[1] + r[2]) * r[3] for r in tr.halo))
+    call()
+    samples = []
+    for _ in range(SPATIAL_ITERS):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        call()
+        torch.cuda.synchronize()
+        samples.append((time.perf_counter() - t0) * 1e3)
+    out["ms"] = samples
+    return out
+
+
+def multi_gpu_rank(mesh, work: dict) -> dict:
+    """Phase 9 on one of two ranks sharing the card over gloo: the data-parallel step (float32 and
+    bf16) held to the one-process step's loss and gradients (``work``'s files), the trainer's rank
+    loop and ``run``'s rank function, the spatial estimates held to the unsharded ones, and the
+    warp's fallback. Returns what it measured; raises on a mismatch."""
+    import contextlib
+    import dataclasses
+
+    from piv_liteflownet_tpu_torch import run, trainer
+    from piv_liteflownet_tpu_torch.ops import conv_chain, correlation, rgb_warp, warp
+    from piv_liteflownet_tpu_torch.parallel.mesh import Traffic, all_gather, split_rows
+    from piv_liteflownet_tpu_torch.parallel.ctx import SpatialCtx
+    from piv_liteflownet_tpu_torch.parallel.spatial import spatial_backwarp
+    from piv_liteflownet_tpu_torch.training.precision import grad_relation
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    ops = (correlation, warp, rgb_warp, conv_chain)
+    dev = mesh.device
+    out = {"rank": mesh.rank, "backend": mesh.backend, "staged": sorted(
+        c for c in ("all_reduce", "broadcast", "all_gather", "p2p") if mesh.staged(c))}
+    refs = torch.load(work["refs"], map_location=dev, weights_only=True)
+    batch = dp_batch(dev)
+    for tag, dtype in (("float32", None), ("bf16", torch.bfloat16)):
+        got = dp_step_run(dev, ops, mesh, batch, dtype)
+        want, truth = refs[f"dp {tag}"], refs["dp float32"]
+        if tag == "float32":
+            # cuDNN picks its algorithms by batch (4 rows against 8): phase 5's tolerance for two float32
+            # steps summed in other orders, each element within 1e-4 of max|g| + 1e-3 of itself
+            bad = [n for n, g in want.items() if not bool(((got["grads"][n] - g).abs() <= GRAD_ATOL_REL
+                                                           * g.abs().max() + GRAD_RTOL * g.abs()).all())]
+            worst = max((float((got["grads"][n] - g).abs().max()) / max(float(g.abs().max()), 1e-30), n)
+                        for n, g in want.items())
+            if bad or not abs(got["loss"] - float(refs["loss float32"])) <= 1e-5 * abs(got["loss"]):
+                raise AssertionError(f"rank {mesh.rank}: the float32 data-parallel step's gradients {bad} beyond "
+                                     f"the tolerance (worst {worst}), loss {got['loss']!r}")
+            rel = None
+        else:
+            worst = max(float((got["grads"][n] - g).abs().max() / bf16_ulp(g.abs().max())) for n, g in want.items())
+            rel = grad_relation(got["grads"], want, truth)
+            if any(err > bound for err, _, bound in rel.values()):
+                raise AssertionError(f"rank {mesh.rank}: the bf16 data-parallel step's gradients {rel}")
+        if got["counts"] != work["dp counts"][tag]:
+            raise AssertionError(f"rank {mesh.rank}: the {tag} data-parallel step launched {got['counts']}, one "
+                                 f"process's step {work['dp counts'][tag]}")
+        out[f"dp {tag}"] = dict(loss=got["loss"], counts=got["counts"], ms=got["ms"], peak_gib=got["peak_gib"],
+                                worst=worst, relation=rel)
+        del got
+    # the trainer's rank loop and run's rank function, as the CLIs spawn them
+    with open(Path(work["tmp"]) / f"dp_cli_rank{mesh.rank}.txt", "w") as f, contextlib.redirect_stdout(f):
+        torch.cuda.synchronize()
+        reset_counts(ops)
+        t0 = time.perf_counter()
+        out["cli"] = trainer.train_rank(mesh, work["cli_argv"])
+        torch.cuda.synchronize()
+        out["cli"].update(counts=read_counts(ops), seconds=time.perf_counter() - t0)
+        reset_counts(ops)
+        t0 = time.perf_counter()
+        stats = run.run_rank(mesh, work["run_argv"])
+        torch.cuda.synchronize()
+        out["run"] = dict(pairs=stats[0].pairs, counts=read_counts(ops), seconds=time.perf_counter() - t0)
+    # spatial estimates: the same ranks as a spatial mesh
+    smesh = dataclasses.replace(mesh, axis="spatial", traffic=Traffic())
+    t1, t2 = spatial_frames(dev)
+    for dtype, impl in SPATIAL_VARIANTS:
+        key = f"{dtype} {impl}"
+        got = spatial_run(dev, ops, t1, t2, dtype, impl, smesh)
+        err = float((got.pop("flow") - refs[f"spatial {key}"]).abs().max())
+        tol = work["spatial tol"][key]
+        got.update(max_abs_err=err, tol=tol)
+        out[f"spatial {key}"] = got
+        sfx = "" if dtype == "float32" else "_bf16"
+        if not (got["counts"]["corr49" + sfx] and got["counts"]["backwarp" + sfx] and not got["counts"]["rgb_warp_norm" + sfx]
+                and bool(got["counts"]["conv_chain" + sfx]) == (impl == "chain")):
+            raise AssertionError(f"rank {mesh.rank}: spatial estimate {key} launched {launched(got['counts'])}: "
+                                 "K1 and K4 on slabs, K6 with the chain, no K3 (its warp is K4's halo warp)")
+        if not (err <= tol and got["bound_ok"] and got["gathers"] in (["output"], ["output", "warp gather"])):
+            raise AssertionError(f"rank {mesh.rank}: spatial estimate {key}: {got} (tolerance {tol})")
+    # the warp's fallback: a v beyond the halo in rank 1's rows alone sends both ranks to the gather
+    img = randn((1, 32, SPATIAL_H // 2, SPATIAL_W // 2), 90, dev)
+    flow = smooth_flow(1, SPATIAL_H // 2, SPATIAL_W // 2, dev)
+    flow[0, 1, SPATIAL_H // 4 + 5, 7] = FALLBACK_V
+    rows = split_rows(img.shape[2], mesh.size, mesh.rank)
+    smesh.traffic.reset()
+    got = spatial_backwarp(SpatialCtx(smesh), img[:, :, rows].contiguous(), flow[:, :, rows].contiguous(), 1,
+                           warp.backwarp)
+    whole = all_gather(smesh, got, 2)
+    err = float((whole - warp.backwarp(img, flow)).abs().max())
+    out["fallback"] = dict(gathers=[g[0] for g in smesh.traffic.gathers], max_abs_err=err)
+    if out["fallback"]["gathers"] != ["warp fallback"] or not err <= WARP_ATOL:
+        raise AssertionError(f"rank {mesh.rank}: the forced fallback {out['fallback']}")
+    return out
+
+
+def run_multi_gpu(dev, ops, card, tmp: Path) -> dict:
+    """Phase 9. On the card alone: a mesh of one rank (NCCL) under the train step and ``estimate``,
+    equal to the calls without a mesh. Then two ranks over gloo share the card
+    (``multi_gpu_rank``): NCCL refuses two ranks on one device, so NCCL between cards is not
+    shown here. Times and memory of those ranks are of two processes on one card, never a
+    multi-card number. Returns each path's launches (per rank, rank 0's)."""
+    from piv_liteflownet_tpu_torch.inference import estimate
+    from piv_liteflownet_tpu_torch.models.liteflownet import PLAIN_OPS
+    from piv_liteflownet_tpu_torch.parallel.mesh import default_backend, make_mesh, spawn
+    from piv_liteflownet_tpu_torch.utils.flow_io import read_flow
+
+    t0 = time.perf_counter()
+    batch = dp_batch(dev)
+    mesh = make_mesh(1)
+    try:
+        if mesh.backend != default_backend(dev) or mesh.device.type != dev.type:
+            raise AssertionError(f"a mesh of one rank on {dev}: {mesh}")
+        plain = dp_step_run(dev, ops, None, batch, None, steps=0)
+        meshed = dp_step_run(dev, ops, mesh, batch, None, steps=0)
+        # two runs of a step differ in the order of the backward's atomics: 1e-5 of max|g|
+        worst = max(float((meshed["grads"][n] - g).abs().max()) / max(float(g.abs().max()), 1e-30)
+                    for n, g in plain["grads"].items())
+        im1, im2 = batch[0][:2], batch[1][:2]
+        model = spatial_model(dev, "float32", "cudnn")
+        e_plain = estimate(model, im1, im2, tensor=True)
+        e_mesh = estimate(model, im1, im2, tensor=True, mesh=mesh)
+        e_err = float((e_plain - e_mesh).abs().max())
+        if not (worst <= REMAT_RTOL and meshed["loss"] == plain["loss"] and e_err == 0.0
+                and meshed["counts"] == plain["counts"]):
+            raise AssertionError(f"NCCL world size 1: the mesh step or estimate differs from the calls without "
+                                 f"a mesh (gradients {worst:.3e} of max|g|, loss {meshed['loss']!r} / "
+                                 f"{plain['loss']!r}, estimate {e_err:.3e})")
+        nccl_counts = meshed["counts"]
+        log(f"  NCCL, one rank: the mesh train step's loss bit-equal to the step's without a mesh, every "
+            f"gradient within {worst:.3e} of its max|g|; estimate(mesh) bit-equal to estimate "
+            f"({launched(nccl_counts)})")
+    finally:
+        mesh.close()
+    del plain, meshed
+
+    refs = {"loss float32": None}
+    one = {}
+    for tag, dtype in (("float32", None), ("bf16", torch.bfloat16)):
+        one[tag] = dp_step_run(dev, ops, None, batch, dtype)
+        refs[f"dp {tag}"] = one[tag].pop("grads")
+    refs["loss float32"] = torch.tensor(one["float32"]["loss"])
+    t1, t2 = spatial_frames(dev)
+    unsharded = {}
+    for dtype, impl in SPATIAL_VARIANTS:
+        got = spatial_run(dev, ops, t1, t2, dtype, impl)
+        refs[f"spatial {dtype} {impl}"] = got.pop("flow")
+        unsharded[f"{dtype} {impl}"] = got
+    with torch.no_grad():
+        f64 = spatial_model(dev, "float32", "cudnn").double()
+        truth = estimate(f64, t1.double(), t2.double(), tensor=True, ops=PLAIN_OPS).float()
+    del f64, t1, t2
+    f32_err = {impl: float((refs[f"spatial float32 {impl}"] - truth).abs().max()) for impl in ("cudnn", "chain")}
+    bf16_err = {impl: float((refs[f"spatial bf16 {impl}"] - refs["spatial float32 cudnn"]).abs().max())
+                for impl in ("cudnn", "chain")}
+    spatial_tol = {f"float32 {impl}": max(SPATIAL_ATOL, 2 * f32_err[impl]) for impl in f32_err}
+    spatial_tol.update({f"bf16 {impl}": max(SPATIAL_ATOL, bf16_err[impl]) for impl in bf16_err})
+    log(f"  unsharded {SPATIAL_H}x{SPATIAL_W}, max|flow| {float(truth.abs().max()):.3f} px: float32 from its float64 "
+        f"plain-ops twin {f32_err}, bf16 from float32 {bf16_err}; the spatial tolerances {spatial_tol}")
+    del truth
+    refs_path = tmp / "multi_gpu_refs.pt"
+    torch.save({k: (v.cpu() if isinstance(v, torch.Tensor) else {n: g.cpu() for n, g in v.items()})
+                for k, v in refs.items()}, refs_path)
+    del refs
+    cli_common = ["--model", "LiteFlowNet", "--batch_size", str(TRAIN_B), "--crop_size", str(TRAIN_H), str(TRAIN_W),
+                  "--training_dataset_root", str(tmp / "data"), "--validation_dataset_root", str(tmp / "data"),
+                  "--total_epochs", "1"]
+    one_cli, one_counts, one_s = run_cli(ops, tmp / "data", tmp / "dp_cli_one", "--total_epochs", "1")
+    run_common = ["-m", "piv", "-p", "-i", str(tmp / "frames"), "-n", str(DP_CLI_PAIRS), "--batch_size", str(RUN_B),
+                  "--params", str(Path(__file__).resolve().parent / TRAINED[1][0])]
+    quiet(__import__("piv_liteflownet_tpu_torch.run", fromlist=["main"]).main,
+          run_common + ["-o", str(tmp / "dp_run_one")])
+    torch.cuda.empty_cache()
+    log(f"  references in one process: {time.perf_counter() - t0:.1f} s")
+
+    t1 = time.perf_counter()
+    work = {"refs": str(refs_path), "tmp": str(tmp), "dp counts": {k: v["counts"] for k, v in one.items()},
+            "spatial tol": spatial_tol,
+            "cli_argv": cli_common + ["--save", str(tmp / "dp_cli_two"), "--logger_workdir", str(tmp / "dp_cli_two" / "exp")],
+            "run_argv": run_common + ["-o", str(tmp / "dp_run_two"), "--num_devices", str(MULTI_RANKS)]}
+    ranks = spawn(multi_gpu_rank, MULTI_RANKS, work, backend="gloo",
+                  devices=[f"{dev.type}:0" if dev.type == "cuda" else "cpu"] * MULTI_RANKS, timeout_s=900)
+    spawn_s = time.perf_counter() - t1
+    r0 = ranks[0]
+    log(f"  {MULTI_RANKS} ranks over {r0['backend']} on one card ({card}) in {spawn_s:.1f} s; collectives staged "
+        f"through pinned host memory: {r0['staged']}")
+    for tag in ("float32", "bf16"):
+        o = one[tag]
+        parts = []
+        for r in ranks:
+            d = r[f"dp {tag}"]
+            parts.append(f"rank {r['rank']}: {np.median(d['ms']):.3f} ms/step median ({min(d['ms']):.3f}-"
+                         f"{max(d['ms']):.3f}), peak {d['peak_gib']:.3f} GiB, launches {launched(d['counts'])}")
+        rel = r0[f"dp {tag}"]["relation"]
+        worst = r0[f"dp {tag}"]["worst"]
+        held = (f"worst gradient {worst[0]:.3e} of its parameter's max|grad| ({worst[1]}; tolerance "
+                f"{GRAD_ATOL_REL} of it + {GRAD_RTOL} of the element)" if rel is None else
+                f"worst gradient {worst:.1f} bf16 ulps of its parameter's max|grad|; against the float32 step, "
+                + ", ".join(f"{k} {v[0]:.3e} (one process {v[1]:.3e})" for k, v in rel.items()))
+        log(f"  data-parallel step {tag}, b{TRAIN_B} as 2 x {TRAIN_B // MULTI_RANKS}: loss {r0[f'dp {tag}']['loss']!r} "
+            f"against one process's {o['loss']!r}; {held}; " + "; ".join(parts)
+            + f"; one process {np.median(o['ms']):.3f} ms/step, peak {o['peak_gib']:.3f} GiB")
+    # the trainer's rank loop against one process's first epoch
+    def losses(exp_dir, key):
+        rows = [json.loads(line) for line in (Path(exp_dir) / "metrics.jsonl").read_text().splitlines()]
+        return [r["value"] for r in rows if r.get("metric", "").startswith(key)]
+
+    cli_rel = 0.0
+    for key in ("train_batch", "val_batch"):
+        a, b = losses(r0["cli"]["experiment_dir"], key), losses(one_cli.experiment.dir, key)
+        if len(a) != len(b) or not a:
+            raise AssertionError(f"trainer rank loop logged {a} against one process's {b}")
+        cli_rel = max(cli_rel, max(abs(x - y) / abs(y) for x, y in zip(a, b)))
+    if not cli_rel <= RESUME_RTOL or ranks[1]["cli"]["written"] or not r0["cli"]["written"]:
+        raise AssertionError(f"trainer rank loop: losses {cli_rel:.3e} from one process's, written "
+                             f"{[r['cli']['written'] for r in ranks]}")
+    log(f"  trainer rank loop, 1 epoch: {r0['cli']['step']} steps, losses within {cli_rel:.3e} (relative) of one "
+        f"process's ({one_s:.2f} s), rank 0 alone wrote {len(r0['cli']['written'])} checkpoints; "
+        + "; ".join(f"rank {r['rank']} {r['cli']['seconds']:.2f} s, launches {launched(r['cli']['counts'])}" for r in ranks))
+    files = sorted((tmp / "dp_run_one").rglob("*.flo"))
+    run_err = max(float(np.abs(read_flow(str(f)) - read_flow(str(tmp / "dp_run_two" / f.relative_to(tmp / "dp_run_one"))))
+                        .max()) for f in files)
+    if len(files) != DP_CLI_PAIRS or not run_err <= SPATIAL_ATOL or sum(r["run"]["pairs"] for r in ranks) != DP_CLI_PAIRS:
+        raise AssertionError(f"run --num_devices 2: {len(files)} files, max diff {run_err}")
+    log(f"  run rank function, {DP_CLI_PAIRS} pairs b{RUN_B} a rank a step: files within {run_err:.3e} px of one "
+        f"process's; " + "; ".join(f"rank {r['rank']} {r['run']['pairs']} pairs {r['run']['seconds']:.2f} s, "
+                                   f"launches {launched(r['run']['counts'])}" for r in ranks))
+    for dtype, impl in SPATIAL_VARIANTS:
+        key = f"{dtype} {impl}"
+        u = unsharded[key]
+        log(f"  spatial estimate {key} {SPATIAL_H}x{SPATIAL_W}: unsharded {np.median(u['ms']):.3f} ms, peak "
+            f"{u['peak_gib']:.3f} GiB; " + "; ".join(
+                f"rank {r['rank']} max abs err {r[f'spatial {key}']['max_abs_err']:.3e} px "
+                f"(tolerance {r[f'spatial {key}']['tol']:.3e}), "
+                f"{np.median(r[f'spatial {key}']['ms']):.3f} ms, peak {r[f'spatial {key}']['peak_gib']:.3f} GiB "
+                f"({r[f'spatial {key}']['peak_gib'] / max(u['peak_gib'], 1e-9):.1%}), {r[f'spatial {key}']['exchanges']} exchanges "
+                f"sent {r[f'spatial {key}']['sent'] / 2**20:.3f} MiB, whole-map gathers {r[f'spatial {key}']['gathers']} "
+                f"{r[f'spatial {key}']['gather_bytes'] / 2**20:.3f} MiB, launches on slabs {launched(r[f'spatial {key}']['counts'])}"
+                for r in ranks))
+    log(f"  forced fallback (v = {FALLBACK_V:g} px in rank 1's rows, halo 32): "
+        + "; ".join(f"rank {r['rank']} {r['fallback']}" for r in ranks))
+    log(f"  phase 9 {time.perf_counter() - t0:.1f} s")
+    paths = {PATH_NCCL1: nccl_counts, PATH_DP: r0["dp float32"]["counts"], PATH_DP_BF16: r0["dp bf16"]["counts"],
+             PATH_DP_CLI: r0["cli"]["counts"], PATH_DP_RUN: r0["run"]["counts"]}
+    for dtype, impl in SPATIAL_VARIANTS:
+        paths[f"{PATH_SPATIAL} {dtype} {impl}"] = r0[f"spatial {dtype} {impl}"]["counts"]
+    return paths
+
+
 PARENT_SOURCES = ("backwarp.cu", "backwarp_bwd.cu", "corr49.cu", "corr49_bwd.cu", "corr49_bf16.cu",
                   "corr49_bwd_bf16.cu", "rgb_warp_norm.cu")
 
@@ -3353,6 +3776,9 @@ def main(argv=None) -> int:
                         help="another checkout's piv_liteflownet_tpu_torch/csrc: its warp, rgb warp-norm and "
                              "cost-volume kernels are built and timed in turns beside this tree's (phases 4 "
                              "and 5), the rgb warp-norm's outputs held bit-equal to this tree's (phase 2)")
+    parser.add_argument("--multi-gpu-only", action="store_true",
+                        help="phases 1 and 9 alone, with phase 9's directories (phase 6's dataset, phase "
+                             "7's frames) made in their place: a quick check of the multi-GPU paths")
     args = parser.parse_args(argv)
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device is available", file=sys.stderr, flush=True)
@@ -3389,6 +3815,18 @@ def main(argv=None) -> int:
                 log(f"    parent {src}: {line}")
 
     ops = (correlation, warp, rgb_warp, conv_chain)
+    if args.multi_gpu_only:
+        from piv_liteflownet_tpu_torch.data.piv_gen import make_dataset_dir
+
+        with tempfile.TemporaryDirectory() as tmp:
+            make_dataset_dir(str(Path(tmp) / "data"), n=DATA_N, size=DATA_SIZE, seed=0, device=dev)
+            make_dataset_dir(str(Path(tmp) / "frames"), n=DP_CLI_PAIRS, size=INGEST_SIZE, seed=7, device=dev,
+                             write_manifest=False)
+            log("phase 9: multi-GPU (one card: NCCL at one rank, two ranks over gloo)")
+            run_multi_gpu(dev, ops, card, Path(tmp))
+        log(f"total {time.perf_counter() - t_start:.1f} s")
+        log(card)
+        return 0
     log("phase 2: kernels against their plain versions")
     errs = check_kernels(dev, ops)
     errs.update(check_bf16_kernels(dev, ops))
@@ -3430,6 +3868,9 @@ def main(argv=None) -> int:
         t8 = time.perf_counter()
         extra_paths = run_extras(dev, ops, card, Path(tmp))
         log(f"  phase 8 {time.perf_counter() - t8:.1f} s ({time.perf_counter() - t_start:.1f} s)")
+        log("phase 9: multi-GPU (one card: NCCL at one rank, two ranks over gloo)")
+        multi_paths = run_multi_gpu(dev, ops, card, Path(tmp))
+        log(f"  ({time.perf_counter() - t_start:.1f} s)")
 
     sources = {"corr49": "corr49.cu", "backwarp": "backwarp.cu", "rgb_warp_norm": "rgb_warp_norm.cu",
                "conv_chain": "conv_chain.cu", "backwarp_bwd": "backwarp_bwd.cu",
@@ -3461,6 +3902,7 @@ def main(argv=None) -> int:
     paths[CLI_PATH_BF16] = cli["launches_bf16"]
     paths.update(ingest_paths)
     paths.update(extra_paths)
+    paths.update(multi_paths)
     # each kernel's own path: where its launches are counted
     own = {"corr49": PATH_V1, "backwarp": PATH_V1, "rgb_warp_norm": PATH_V1,
            "conv_chain": PATH_V2_CHAIN, "backwarp_bwd": "train step piv v1 256^2 b8",

@@ -9,7 +9,9 @@ feature backwarp, the fused rgb warp + occlusion norm, the backward of the
 warp and of the cost volume, and the NetE conv chain are hand-written CUDA
 kernels (``csrc/*.cu``, built with ``nvcc`` at first use, see
 ``kernels/build.py``). Entry points run on the CUDA card unless the caller
-passes ``device="cpu"``.
+passes ``device="cpu"``. Over several cards, one process each
+(``parallel/mesh.py``): data-parallel training and inference, and inference
+with each frame's height split over the cards (``parallel/spatial.py``).
 """
 
 __version__ = "0.1.0"

@@ -2,10 +2,14 @@
 // the stride-s output grid, in float32 or bfloat16 (map, flow and output of
 // one type):
 //
-//   out[b,c,oy,ox] = img[b,c] sampled at (s*ox + u, s*oy + v),  (u,v) = flow[b,:,oy,ox]
+//   out[b,c,oy,ox] = img[b,c] sampled at (s*ox + u, s*oy + row0 + v),  (u,v) = flow[b,:,oy,ox]
 //
 // bilinear, zeros outside the map (grid_sample align_corners=True), output
-// [B, C, ceil(H/s), ceil(W/s)]. Replaces the TPU kernel
+// [B, C, Ho, ceil(W/s)]: the whole grid is Ho = ceil(H/s) rows and row0 = 0;
+// a slab of an H-sharded map (ops/halo_warp.py) is a map taller than its
+// output rows, which start at its row row0, an integer, so that the flow is
+// never rebased (in bf16, v + 32 would round to a quarter pixel). The image
+// is indexed by its own H and W in both forms. Replaces the TPU kernel
 // piv_liteflownet_tpu/ops/pallas_feat_warp.py:feat_warp_pallas, and also
 // covers the stride-2 form of ops/warp.py:backwarp that feeds the stride-2
 // cost volume.
@@ -63,7 +67,7 @@ constexpr int BLOCK = 256;
 __global__ void __launch_bounds__(BLOCK)
 backwarp_kernel(const float* __restrict__ img, const float* __restrict__ flow,
                 float* __restrict__ out, int B, int C, int H, int W,
-                int Ho, int Wo, int stride) {
+                int Ho, int Wo, int stride, int row0) {
   const int idx = blockIdx.x * BLOCK + threadIdx.x;
   const int npix = Ho * Wo;
   if (idx >= B * npix) return;
@@ -74,7 +78,7 @@ backwarp_kernel(const float* __restrict__ img, const float* __restrict__ flow,
 
   const float* fb = flow + (size_t)b * 2 * npix;
   const float x = (float)(ox * stride) + elem::load(fb + p);
-  const float y = (float)(oy * stride) + elem::load(fb + npix + p);
+  const float y = (float)(oy * stride + row0) + elem::load(fb + npix + p);
   const BilinearTaps t = bilinear_taps(x, y, H, W);
 
   const size_t plane = (size_t)H * W;
@@ -112,7 +116,7 @@ __device__ __forceinline__ void cp_wait() {
 __global__ void __launch_bounds__(BLOCK)
 backwarp_staged_kernel(const bf16* __restrict__ img, const bf16* __restrict__ flow, bf16* __restrict__ out,
               unsigned int* __restrict__ n_direct, int C, int H, int W, int Ho, int Wo, int stride,
-              bool aligned) {
+              int row0, bool aligned) {
   __shared__ uint4 stage[2][G][CHUNKS];
   __shared__ int red[4][NWARP];
   const int tid = threadIdx.x, lane = tid % 32, wid = tid / 32;
@@ -122,7 +126,8 @@ backwarp_staged_kernel(const bf16* __restrict__ img, const bf16* __restrict__ fl
   const bf16* fb = flow + (size_t)b * 2 * npix;
   // a pixel outside the output samples far outside the map: every tap out
   const BilinearTaps t = bilinear_taps(live ? (float)(ox * stride) + elem::load(fb + p) : -2.f,
-                                       live ? (float)(oy * stride) + elem::load(fb + npix + p) : -2.f, H, W);
+                                       live ? (float)(oy * stride + row0) + elem::load(fb + npix + p) : -2.f,
+                                       H, W);
   // the footprint: min x, -max x, min y, -max y of the tile's taps inside the map
   int m[4] = {INT_MAX, INT_MAX, INT_MAX, INT_MAX};
 #pragma unroll
@@ -216,11 +221,11 @@ backwarp_staged_kernel(const bf16* __restrict__ img, const bf16* __restrict__ fl
 
 extern "C" int pivk_backwarp_f32(const void* img, const void* flow, void* out,
                                  int B, int C, int H, int W, int Ho, int Wo,
-                                 int stride, int device, void* stream) {
+                                 int stride, int row0, int device, void* stream) {
   return pivk::on_device(device, [&] {
     const long long n = (long long)B * Ho * Wo;
     backwarp_kernel<<<(unsigned)((n + BLOCK - 1) / BLOCK), BLOCK, 0, (cudaStream_t)stream>>>(
-        (const float*)img, (const float*)flow, (float*)out, B, C, H, W, Ho, Wo, stride);
+        (const float*)img, (const float*)flow, (float*)out, B, C, H, W, Ho, Wo, stride, row0);
     return (int)cudaGetLastError();
   });
 }
@@ -229,14 +234,14 @@ extern "C" int pivk_backwarp_f32(const void* img, const void* flow, void* out,
 // that gathers directly adds one (the caller zeroes it when it wants a count).
 extern "C" int pivk_backwarp_bf16(const void* img, const void* flow, void* out, void* n_direct,
                                   int B, int C, int H, int W, int Ho, int Wo,
-                                  int stride, int device, void* stream) {
+                                  int stride, int row0, int device, void* stream) {
   return pivk::on_device(device, [&] {
     const bool aligned = W % 8 == 0 && reinterpret_cast<uintptr_t>(img) % 16 == 0;
     const dim3 grid((unsigned)((Wo + stg::TW - 1) / stg::TW), (unsigned)((Ho + stg::TH - 1) / stg::TH),
                     (unsigned)B);
     stg::backwarp_staged_kernel<<<grid, BLOCK, 0, (cudaStream_t)stream>>>(
         (const elem::bf16*)img, (const elem::bf16*)flow, (elem::bf16*)out, (unsigned int*)n_direct, C, H, W,
-        Ho, Wo, stride, aligned);
+        Ho, Wo, stride, row0, aligned);
     return (int)cudaGetLastError();
   });
 }

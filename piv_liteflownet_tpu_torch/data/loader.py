@@ -70,12 +70,12 @@ def native_loader_for(dataset, batch_size: int, num_workers: int = 4):
 
 
 def native_train_loader_for(dataset, batch_size: int, num_workers: int = 4, shuffle: bool = True,
-                            seed: int = 0, drop_last: bool = True):
+                            seed: int = 0, drop_last: bool = True, rank: int = 0, ranks: int = 1):
     """``libpivio``'s training loader over a dataset of ``(img1, img2, flo)`` path triplets
     (``PIVData.samples``), or None where it does not apply (no such triplets, or a frame
     format the decoders reject). Its batches and their order equal ``BatchLoader``'s with the
-    same ``shuffle``, ``seed`` and ``drop_last``. Raises if the library cannot be built or
-    loaded."""
+    same ``shuffle``, ``seed``, ``drop_last``, ``rank`` and ``ranks``. Raises if the library
+    cannot be built or loaded."""
     from piv_liteflownet_tpu_torch.data import native
 
     native.load()
@@ -92,7 +92,8 @@ def native_train_loader_for(dataset, batch_size: int, num_workers: int = 4, shuf
         return None
     return native.NativeTrainLoader(
         samples, batch_size, probe.shape[0], probe.shape[1], fprobe.shape[0], fprobe.shape[1],
-        threads=_native_threads(num_workers), shuffle=shuffle, seed=seed, drop_last=drop_last)
+        threads=_native_threads(num_workers), shuffle=shuffle, seed=seed, drop_last=drop_last,
+        rank=rank, ranks=ranks)
 
 
 def _collate(samples):
@@ -120,17 +121,23 @@ class BatchLoader:
     """Batches of a dataset, decoded by ``num_workers`` threads (0: in the calling thread).
 
     Yields ``((im1[B,H,W,3], im2[B,H,W,3]), metas)``; the last partial batch is
-    yielded unless ``drop_last``.
+    yielded unless ``drop_last``. With ``ranks`` above 1 (data-parallel training) it
+    forms the global batches of ``batch_size`` as one loader would and yields rank
+    ``rank``'s rows of each, ``parallel/mesh.py:split_rows``, decoding only those; a
+    batch that does not split evenly raises ``ValueError``, as JAX's ``device_put``
+    onto a ``data`` sharding does.
     """
 
     def __init__(self, dataset, batch_size: int = 1, num_workers: int = 4,
-                 shuffle: bool = False, seed: int = 0, drop_last: bool = False):
+                 shuffle: bool = False, seed: int = 0, drop_last: bool = False,
+                 rank: int = 0, ranks: int = 1):
         self.dataset = dataset
         self.batch_size = batch_size
         self.num_workers = num_workers
         self.shuffle = shuffle
         self.seed = seed
         self.drop_last = drop_last
+        self.rank, self.ranks = rank, ranks
         self._epoch = 0
 
     def set_epoch(self, epoch: int) -> None:
@@ -151,6 +158,8 @@ class BatchLoader:
         batches = [idx[i:i + bs] for i in range(0, len(idx), bs)]
         if self.drop_last and batches and len(batches[-1]) < bs:
             batches.pop()
+        if self.ranks > 1:
+            batches = _rank_rows(batches, self.rank, self.ranks)
         if self.num_workers <= 0:
             for batch_idx in batches:
                 yield _collate([self.dataset[int(i)] for i in batch_idx])
@@ -164,6 +173,14 @@ class BatchLoader:
                     bi += 1
                 futs = pending.pop(0)
                 yield _collate([f.result() for f in futs])
+
+
+def _rank_rows(batches: list, rank: int, ranks: int) -> list:
+    """Rank ``rank``'s rows of each global batch, in order; raises before the epoch's first batch
+    if one of them does not split evenly."""
+    from piv_liteflownet_tpu_torch.parallel.mesh import split_rows
+
+    return [batch[split_rows(len(batch), ranks, rank)] for batch in batches]
 
 
 def _map(fn, tree):

@@ -316,13 +316,16 @@ class NativeTrainLoader:
     ``((im1 [B,H,W,3], im2 [B,H,W,3]), flow [B,FH,FW,2])`` like ``BatchLoader`` over a
     ``PIVData``. The order of an epoch is drawn from ``np.random.default_rng(seed + epoch)``
     (``set_epoch`` pins it), and ``drop_last`` drops the short last batch; the C loader is
-    made anew each epoch over the permuted paths. A sample that does not decode, or whose
-    frames or flow are not of the given sizes, raises ``IOError`` naming its file."""
+    made anew each epoch over the permuted paths. With ``ranks`` above 1 it yields rank
+    ``rank``'s rows of each global batch and decodes only those, as ``BatchLoader`` does. A
+    sample that does not decode, or whose frames or flow are not of the given sizes, raises
+    ``IOError`` naming its file."""
 
     def __init__(self, triplets: Sequence[Tuple[str, str, str]], batch_size: int, height: int, width: int,
                  fh: int, fw: int, threads: int = 4, shuffle: bool = False, seed: int = 0,
-                 drop_last: bool = False):
+                 drop_last: bool = False, rank: int = 0, ranks: int = 1):
         load()
+        self.rank, self.ranks = rank, ranks
         self.triplets = list(triplets)
         self.batch = batch_size
         self.h, self.w, self.fh, self.fw = height, width, fh, fw
@@ -331,7 +334,8 @@ class NativeTrainLoader:
         self.seed = seed
         self.drop_last = drop_last
         self._epoch = 0
-        self.ring = SlotRing([(2, batch_size, height, width, 3), (batch_size, fh, fw, 2)])
+        rows = batch_size // ranks if ranks > 1 else batch_size  # a rank's rows of a full batch
+        self.ring = SlotRing([(2, rows, height, width, 3), (rows, fh, fw, 2)])
 
     def set_epoch(self, epoch: int) -> None:
         self._epoch = epoch
@@ -352,10 +356,17 @@ class NativeTrainLoader:
         self._epoch += 1
         if self.drop_last:
             order = order[:len(order) // self.batch * self.batch]
+        batch = self.batch
+        if self.ranks > 1:
+            from piv_liteflownet_tpu_torch.parallel.mesh import split_rows
+
+            order = np.concatenate([order[i:i + batch][split_rows(len(order[i:i + batch]), self.ranks, self.rank)]
+                                    for i in range(0, len(order), batch)] or [order])
+            batch //= self.ranks
         trips = [self.triplets[i] for i in order]
         n = len(trips)
         p1, p2, pf = ((ctypes.c_char_p * n)(*[t[j].encode() for t in trips]) for j in range(3))
-        handle = lib.pivio_loader_create_flow(p1, p2, pf, n, self.batch, self.h, self.w, self.fh, self.fw,
+        handle = lib.pivio_loader_create_flow(p1, p2, pf, n, batch, self.h, self.w, self.fh, self.fw,
                                               self.threads)
         try:
             for _ in range(lib.pivio_loader_batches(handle)):

@@ -8,7 +8,10 @@
 3. the flow is resized back to the input size, u scaled by W_in/W_32 and v
    by H_in/H_32, all in that dtype.
 
-Inputs and outputs keep the JAX package's NHWC layout.
+Inputs and outputs keep the JAX package's NHWC layout. Across ranks
+(``parallel/mesh.py``, every rank calling with the same frames): ``mesh``
+splits the batch, ``spatial_mesh`` each frame's height (``parallel/spatial.py``);
+both return the whole result on every rank, as JAX returns a global array.
 """
 
 from __future__ import annotations
@@ -23,6 +26,7 @@ import torch
 from piv_liteflownet_tpu_torch.models.liteflownet import KERNEL_OPS, LiteFlowNet, Ops
 from piv_liteflownet_tpu_torch.ops.nn import device_constant, f32_convs
 from piv_liteflownet_tpu_torch.ops.resize import resize_bilinear
+from piv_liteflownet_tpu_torch.parallel.mesh import Mesh, gather_rows, split_rows
 from piv_liteflownet_tpu_torch.utils.flow_io import flowname_modifier, image_files_from_folder, write_flow
 
 
@@ -36,8 +40,17 @@ def to_nchw(img, device: torch.device, dtype: torch.dtype = torch.float32) -> to
     return t.to(device=device, dtype=dtype).permute(0, 3, 1, 2).contiguous()
 
 
+def _mesh_size(mesh: Optional[Mesh], axis: str) -> int:
+    if mesh is None:
+        return 1
+    if not isinstance(mesh, Mesh) or mesh.axis != axis:
+        raise ValueError(f"expected a parallel.mesh.Mesh with a {axis!r} axis, got {mesh!r}")
+    return mesh.size
+
+
 @torch.no_grad()
-def estimate(model: LiteFlowNet, img1, img2, tensor: bool = False, ops: Ops = KERNEL_OPS):
+def estimate(model: LiteFlowNet, img1, img2, tensor: bool = False, ops: Ops = KERNEL_OPS,
+             mesh: Optional[Mesh] = None, spatial_mesh: Optional[Mesh] = None):
     """Flow for one pair or a batch of pairs.
 
     img1/img2: ``[H,W,3]`` or ``[B,H,W,3]`` in [0, 1] (numpy or torch).
@@ -51,6 +64,13 @@ def estimate(model: LiteFlowNet, img1, img2, tensor: bool = False, ops: Ops = KE
     exports no bf16 to numpy (JAX returns an ``ml_dtypes`` bf16 array).
     ``ops`` selects the kernels (default) or their plain versions. float32
     convs run in full float32 whatever torch's TF32 flags say.
+
+    ``mesh``: a ``data`` mesh; the batch is padded to a multiple of its ranks by repeating
+    the last pair, each rank runs the whole pipeline on its rows, and the flows are gathered
+    on every rank. ``spatial_mesh``: a ``spatial`` mesh; the /32 resize is raised to the next
+    multiple of 32 x its ranks where needed, each frame's height is split over the ranks
+    (``parallel/spatial.py:spatial_estimate``) and the flow is gathered before the resize
+    back. The two are mutually exclusive; every rank of the mesh calls with the same frames.
     """
     if tuple(img1.shape) != tuple(img2.shape):
         raise ValueError(f"both frames must have the same shape, got "
@@ -64,12 +84,29 @@ def estimate(model: LiteFlowNet, img1, img2, tensor: bool = False, ops: Ops = KE
     device, dtype = param.device, param.dtype
     x1, x2 = to_nchw(img1, device, dtype), to_nchw(img2, device, dtype)
     in_h, in_w = x1.shape[2], x1.shape[3]
+    n, ns = _mesh_size(mesh, "data"), _mesh_size(spatial_mesh, "spatial")
+    if mesh is not None and spatial_mesh is not None:
+        raise ValueError("mesh and spatial_mesh are mutually exclusive")
     ah, aw = adaptive_size(in_h, in_w)
+    b = x1.shape[0]
+    if mesh is not None:
+        pad = (-b) % n
+        if pad:
+            x1, x2 = (torch.cat([x, x[-1:].expand(pad, -1, -1, -1)]) for x in (x1, x2))
+        rows = split_rows(b + pad, n, mesh.rank)
+        x1, x2 = x1[rows], x2[rows]
+    if spatial_mesh is not None:
+        from piv_liteflownet_tpu_torch.parallel.spatial import spatial_estimate
+
+        ah = -(-ah // (32 * ns)) * 32 * ns  # equal level-6 shards
     with f32_convs():
-        flow = model(resize_bilinear(x1, ah, aw), resize_bilinear(x2, ah, aw), ops)
+        x1, x2 = resize_bilinear(x1, ah, aw), resize_bilinear(x2, ah, aw)
+        flow = model(x1, x2, ops) if spatial_mesh is None else spatial_estimate(model, x1, x2, spatial_mesh, ops=ops)
     flow = resize_bilinear(flow, in_h, in_w)
     scale = device_constant((in_w / aw, in_h / ah), flow.dtype, device)
     flow = (flow * scale.view(1, 2, 1, 1)).permute(0, 2, 3, 1)
+    if mesh is not None:
+        flow = gather_rows(mesh, flow.contiguous())[:b]
     if tensor or not single:
         return flow
     return flow[0].float().cpu().numpy()

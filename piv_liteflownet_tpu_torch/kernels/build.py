@@ -38,7 +38,7 @@ _I = ctypes.c_int
 #: C signature of every kernel entry point: name -> argtypes.
 SIGNATURES = {
     "pivk_corr49_f32": (_P, _P, _P, _P, _I, _I, _I, _I, _I, _P),
-    "pivk_backwarp_f32": (_P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _P),
+    "pivk_backwarp_f32": (_P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _I, _P),
     "pivk_rgb_warp_norm_f32": (_P, _P, _P, _P, _I, _I, _I, _I, _P),
     "pivk_backwarp_bwd_f32": (_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _P),
     "pivk_corr49_bwd_f32": (_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P),

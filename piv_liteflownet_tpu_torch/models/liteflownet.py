@@ -26,6 +26,13 @@ NetE-M/S/R conv stack of a level of at least 32x32 as one ``conv_chain``
 (``csrc/conv_chain.cu``, forward only, in the params' dtype: float32 or
 bf16); otherwise, and always in the train forward, the stacks are cuDNN
 convs. Convs, deconvs, resize, unfold and softmax stay cuDNN/PyTorch.
+
+Under the spatial context of ``parallel/ctx.py`` (``parallel/spatial.py``) every
+map is this rank's rows of an H-sharded map: each op or conv stack that reads
+across rows runs on rows extended from the neighbours (:func:`_rows`), the warps
+take ``parallel/spatial.py:spatial_backwarp``, NetE-R's flow mean is a mean over
+all ranks and its occlusion norm the warp's (K4) then the norm, as in JAX. Without
+the context these helpers are the plain calls.
 """
 
 from __future__ import annotations
@@ -42,6 +49,8 @@ from torch.utils.checkpoint import checkpoint
 from piv_liteflownet_tpu_torch.ops import conv_chain, correlation, rgb_warp, warp
 from piv_liteflownet_tpu_torch.ops.nn import NEGATIVE_SLOPE, depthwise_deconv4x2, device_constant, leaky_relu, unfold
 from piv_liteflownet_tpu_torch.ops.resize import resize_bilinear
+from piv_liteflownet_tpu_torch.parallel import spatial
+from piv_liteflownet_tpu_torch.parallel.ctx import get_spatial_ctx
 
 # Per-pyramid-level constants, indexed by actual level (1..6); index 0 unused.
 KLAST = [0, 7, 7, 5, 5, 3, 3]      # last-conv kernel size of M/S, unfold size of R
@@ -207,6 +216,35 @@ def _run_stack(stack: nn.Sequential, parts: List[torch.Tensor], ops: Ops, chain:
     return stack(parts[0] if len(parts) == 1 else torch.cat(parts, 1))
 
 
+def _stencil(seq: nn.Sequential) -> Tuple[int, int]:
+    """``(halo, stride)`` of a stack of convs: the input rows beyond a shard's, above and below,
+    that its output rows read, rounded up to a multiple of its stride; and its stride."""
+    halo, stride = 0, 1
+    for m in reversed(seq):
+        if isinstance(m, nn.Conv2d):
+            k, s, p = m.kernel_size[0], m.stride[0], m.padding[0]
+            halo, stride = halo * s + max(p, k - 1 - p), stride * s
+    return -(-halo // stride) * stride, stride
+
+
+def _rows(fn: Callable, xs: List[torch.Tensor], halo: int, down: int = 1, up: int = 1,
+          label: str = "") -> torch.Tensor:
+    """``fn(*xs)``; under the spatial context on this rank's rows extended by ``halo`` rows each
+    side and cropped back (``parallel/spatial.py:on_slab``)."""
+    ctx = get_spatial_ctx()
+    if ctx is None:
+        return fn(*xs)
+    return spatial.on_slab(ctx, fn, xs, halo, down, up, label)
+
+
+def _warp(ops: "Ops", img: torch.Tensor, flow: torch.Tensor, stride: int = 1) -> torch.Tensor:
+    """``ops.backwarp``; under the spatial context the sharded warp (halo exchange or gather)."""
+    ctx = get_spatial_ctx()
+    if ctx is None:
+        return ops.backwarp(img, flow) if stride == 1 else ops.backwarp(img, flow, stride)
+    return spatial.spatial_backwarp(ctx, img, flow, stride, ops.backwarp)
+
+
 def _call(module: nn.Module, remat: bool, *args):
     """``module(*args)``; with ``remat`` under ``torch.utils.checkpoint``, its activations dropped
     and recomputed in the backward.
@@ -243,9 +281,10 @@ class NetC(nn.Module):
         self.conv6 = nn.Sequential(nn.Conv2d(128, 192, 3, 2, 1), _lrelu())
 
     def forward(self, x: torch.Tensor) -> List[torch.Tensor]:
-        feats = [self.conv1(x)]
-        for conv in (self.conv2, self.conv3, self.conv4, self.conv5, self.conv6):
-            feats.append(conv(feats[-1]))
+        feats = []
+        for conv in (self.conv1, self.conv2, self.conv3, self.conv4, self.conv5, self.conv6):
+            halo, stride = _stencil(conv)
+            feats.append(_rows(conv, [feats[-1] if feats else x], halo, stride, label="NetC"))
         return feats
 
 
@@ -273,10 +312,14 @@ class Matching(nn.Module):
 
     def forward(self, f1, f2, flow: Optional[torch.Tensor], ops: Ops, chain: bool = False) -> torch.Tensor:
         if flow is not None:
-            flow = depthwise_deconv4x2(flow, self.upConv_M.weight)
+            flow = _rows(lambda f: depthwise_deconv4x2(f, self.upConv_M.weight), [flow], 1, up=2,
+                         label="upConv_M")
+        halo = _stencil(self.conv_M)[0]
         if self.level >= 4:
-            f2c = f2 if flow is None else ops.backwarp(f2, flow * self.sf)
-            corr = leaky_relu(ops.corr49(f1, f2c))
+            f2c = f2 if flow is None else _warp(ops, f2, flow * self.sf)
+            # the cost volume reads 3 rows each side, the stack its halo
+            x = _rows(lambda a, b: _run_stack(self.conv_M, [leaky_relu(ops.corr49(a, b))], ops, chain),
+                      [f1, f2c], halo + 3, label="NetE-M")
         else:
             # Stride-2 cost volume: its taps are multiples of 2, so only the
             # even phase of both maps is warped and correlated.
@@ -284,9 +327,10 @@ class Matching(nn.Module):
             if flow is None:
                 f2s = f2[:, :, ::2, ::2].contiguous()
             else:
-                f2s = ops.backwarp(f2, (flow[:, :, ::2, ::2] * self.sf).contiguous(), 2)
-            corr = depthwise_deconv4x2(leaky_relu(ops.corr49(f1s, f2s)), self.upCorr_M.weight)
-        x = _run_stack(self.conv_M, [corr], ops, chain)
+                f2s = _warp(ops, f2, (flow[:, :, ::2, ::2] * self.sf).contiguous(), 2)
+            corr = _rows(lambda a, b: depthwise_deconv4x2(leaky_relu(ops.corr49(a, b)), self.upCorr_M.weight),
+                         [f1s, f2s], 4, up=2, label="cost volume")
+            x = _rows(lambda c: _run_stack(self.conv_M, [c], ops, chain), [corr], halo, label="NetE-M")
         return x if flow is None else x + flow
 
 
@@ -299,8 +343,10 @@ class Subpixel(nn.Module):
         self.conv_S = _conv_stack(s_chain(level, cfg.version), KLAST[level], PLAST[level])
 
     def forward(self, f1, f2, flow: torch.Tensor, ops: Ops, chain: bool = False) -> torch.Tensor:
-        f2w = ops.backwarp(f2, flow * self.sf)
-        return _run_stack(self.conv_S, [f1, f2w, flow], ops, chain) + flow
+        f2w = _warp(ops, f2, flow * self.sf)
+        x = _rows(lambda a, b, c: _run_stack(self.conv_S, [a, b, c], ops, chain), [f1, f2w, flow],
+                  _stencil(self.conv_S)[0], label="NetE-S")
+        return x + flow
 
 
 class Regularization(nn.Module):
@@ -323,9 +369,21 @@ class Regularization(nn.Module):
         self.moduleScaleY = nn.Conv2d(d, 1, 1, 1, 0)
 
     def forward(self, img1, img2, feat1, flow: torch.Tensor, ops: Ops, chain: bool = False) -> torch.Tensor:
+        ctx = get_spatial_ctx()
+        if ctx is None:
+            rm_flow = flow - flow.mean(dim=(2, 3), keepdim=True)
+            norm = ops.rgb_warp_norm(img1, img2, flow * self.sf).detach()
+        else:
+            rm_flow = flow - spatial.mean_hw(ctx, flow)
+            # the difference and the squared sum in float32, rounded once, as K3's bf16 form does
+            d = img1.float() - _warp(ops, img2, flow * self.sf).float()
+            norm = torch.sqrt(torch.sum(d * d, dim=1, keepdim=True)).to(img1.dtype).detach()
+        # the stack and the dist convs read their halo; the unfold reads fewer rows of the flow
+        halo = _stencil(self.conv_R)[0] + _stencil(self.conv_dist_R)[0]
+        return _rows(lambda *a: self._tail(*a, ops, chain), [norm, rm_flow, feat1, flow], halo, label="NetE-R")
+
+    def _tail(self, norm, rm_flow, feat1, flow, ops: Ops, chain: bool) -> torch.Tensor:
         k = KLAST[self.level]
-        rm_flow = flow - flow.mean(dim=(2, 3), keepdim=True)
-        norm = ops.rgb_warp_norm(img1, img2, flow * self.sf).detach()
         feat_r = self.moduleFeat(feat1) if self.level < 5 else feat1
         x = self.conv_dist_R(_run_stack(self.conv_R, [norm, rm_flow, feat_r], ops, chain))
         negsq = -(x * x)
@@ -384,6 +442,8 @@ class LiteFlowNet(nn.Module):
         only the memory schedule differs (JAX wraps the whole forward in ``jax.checkpoint``).
         """
         cfg = self.cfg
+        if train and get_spatial_ctx() is not None:
+            raise ValueError("the spatial context shards the eval forward only")
         chain = cfg.conv_impl == "chain" and not train
         mean = device_constant(tuple(cfg.rgb_mean), img1.dtype, img1.device)
         x1 = (img1 - mean[:3].view(1, 3, 1, 1)).contiguous()

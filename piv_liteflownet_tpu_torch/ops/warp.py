@@ -4,7 +4,10 @@ Port of ``piv_liteflownet_tpu/ops/warp.py:backwarp`` (including ``stride``),
 which is ``grid_sample(mode="bilinear", padding_mode="zeros",
 align_corners=True)`` at pixel coordinates ``(s*x + u, s*y + v)``. NCHW here:
 ``img [B,C,H,W]``, ``flow [B,2,ceil(H/s),ceil(W/s)]`` (u horizontal, v
-vertical) -> ``[B,C,ceil(H/s),ceil(W/s)]``.
+vertical) -> ``[B,C,ceil(H/s),ceil(W/s)]``. The forward also takes a slab
+(``ops/halo_warp.py``): an image taller than the output grid, whose rows
+start at the image's row ``row0`` (pixel coordinates ``(s*x + u, s*y + row0
++ v)``); the flow's rows are then any count, its columns still ``ceil(W/s)``.
 
 ``backwarp`` launches the CUDA kernel ``csrc/backwarp.cu`` for CUDA tensors
 (the port of the TPU kernel ``ops/pallas_feat_warp.py:feat_warp_pallas``;
@@ -78,17 +81,18 @@ def out_hw(h: int, w: int, stride: int) -> tuple[int, int]:
     return -(-h // stride), -(-w // stride)
 
 
-def _corners(flow: torch.Tensor, stride: int):
-    """Sample points ``x, y [B,h,w]`` (pixels, float32) and their floors ``x0, y0``."""
+def _corners(flow: torch.Tensor, stride: int, row0: int = 0):
+    """Sample points ``x, y [B,h,w]`` (pixels, float32) and their floors ``x0, y0``; the output
+    grid's rows start at the image's row ``row0`` (an integer, added before the flow)."""
     ho, wo = flow.shape[2], flow.shape[3]
     xs = torch.arange(wo, device=flow.device, dtype=torch.float32) * stride
-    ys = torch.arange(ho, device=flow.device, dtype=torch.float32) * stride
+    ys = (torch.arange(ho, device=flow.device, dtype=torch.int64) * stride + row0).float()
     x = xs[None, None, :] + flow[:, 0]
     y = ys[None, :, None] + flow[:, 1]
     return x, y, torch.floor(x), torch.floor(y)
 
 
-def _taps(img: torch.Tensor, flow: torch.Tensor, stride: int):
+def _taps(img: torch.Tensor, flow: torch.Tensor, stride: int, row0: int = 0):
     """The four bilinear taps of every output pixel: ``(dy, dx, wgt_y, wgt_x, ok, idx)``.
 
     ``idx [B,1,h*w]`` is the flat index of the corner (clamped into the map;
@@ -97,7 +101,7 @@ def _taps(img: torch.Tensor, flow: torch.Tensor, stride: int):
     """
     b, _, h, w = img.shape
     ho, wo = flow.shape[2], flow.shape[3]
-    x, y, x0, y0 = _corners(flow, stride)
+    x, y, x0, y0 = _corners(flow, stride, row0)
     wx = (x - x0).to(img.dtype)
     wy = (y - y0).to(img.dtype)
     taps = []
@@ -113,8 +117,9 @@ def _taps(img: torch.Tensor, flow: torch.Tensor, stride: int):
     return taps
 
 
-def backwarp_plain(img: torch.Tensor, flow: torch.Tensor, stride: int = 1) -> torch.Tensor:
-    """Plain PyTorch backwarp: a 4-tap bilinear gather with zeros outside the map, in ``img``'s dtype.
+def backwarp_plain(img: torch.Tensor, flow: torch.Tensor, stride: int = 1, row0: int = 0) -> torch.Tensor:
+    """Plain PyTorch backwarp: a 4-tap bilinear gather with zeros outside the map, in ``img``'s dtype
+    (``row0``: see the module docstring).
 
     The taps' products (of values and weights in the map's dtype) are summed in float32 and
     the sum rounded once, as JAX's ``einsum`` over the taps does in bf16.
@@ -123,7 +128,7 @@ def backwarp_plain(img: torch.Tensor, flow: torch.Tensor, stride: int = 1) -> to
     ho, wo = flow.shape[2], flow.shape[3]
     flat = img.reshape(b, c, h * w)
     out = None
-    for _, _, wgt_y, wgt_x, ok, idx in _taps(img, flow, stride):
+    for _, _, wgt_y, wgt_x, ok, idx in _taps(img, flow, stride, row0):
         vals = flat.gather(2, idx.expand(b, c, ho * wo)).reshape(b, c, ho, wo)
         tap = vals.float() * torch.where(ok, wgt_x * wgt_y, 0.0).float()[:, None]
         out = tap if out is None else out + tap
@@ -166,23 +171,23 @@ class TileWindows(NamedTuple):
     fits: torch.Tensor    # the window path: ceil(width / 4) * height <= WINDOW_VEC4
 
 
-def _tap_corners(flow: torch.Tensor, h: int, w: int, stride: int):
+def _tap_corners(flow: torch.Tensor, h: int, w: int, stride: int, row0: int = 0):
     """The four taps of every output pixel, ``(cx, cy, inside)`` of shape ``[4,B,ho,wo]``, as in
     :func:`_taps`."""
-    _, _, x0, y0 = _corners(flow, stride)
+    _, _, x0, y0 = _corners(flow, stride, row0)
     cx = torch.stack([x0, x0 + 1, x0, x0 + 1])
     cy = torch.stack([y0, y0, y0 + 1, y0 + 1])
     return cx, cy, (cx >= 0) & (cx <= w - 1) & (cy >= 0) & (cy <= h - 1)
 
 
-def _tile_footprints(flow: torch.Tensor, h: int, w: int, stride: int, tile=(TILE_W, TILE_H)):
+def _tile_footprints(flow: torch.Tensor, h: int, w: int, stride: int, tile=(TILE_W, TILE_H), row0: int = 0):
     """Per tile of ``tile`` (width, height) output pixels ``[B, nty, ntx]``: the bounding box
     ``(xmin, xmax, ymin, ymax)`` (float) of its pixels' taps inside the ``h x w`` map, and where
     it has none (``empty``; the box is then infinite)."""
     b, _, ho, wo = flow.shape
     tw, th = tile
     nty, ntx = -(-ho // th), -(-wo // tw)
-    cx, cy, ok = _tap_corners(flow, h, w, stride)
+    cx, cy, ok = _tap_corners(flow, h, w, stride, row0)
 
     def per_tile(v, fill, reduce):  # over the taps inside the map of each tile's pixels
         t = torch.full((4, b, nty * th, ntx * tw), fill, device=flow.device)
@@ -301,7 +306,8 @@ def slow_rect_counter(device: torch.device) -> torch.Tensor:
     return kernels.device_counter("backwarp_bwd_bf16 slow rectangles", device)
 
 
-def staged_tiles(flow: torch.Tensor, h: int, w: int, stride: int, aligned: bool = True) -> torch.Tensor:
+def staged_tiles(flow: torch.Tensor, h: int, w: int, stride: int, aligned: bool = True,
+                 row0: int = 0) -> torch.Tensor:
     """The tile rule of ``csrc/backwarp.cu``'s bf16 form: per tile ``[B, ceil(ho/8), ceil(wo/32)]``
     of output pixels, whether it gathers directly (bool).
 
@@ -311,7 +317,7 @@ def staged_tiles(flow: torch.Tensor, h: int, w: int, stride: int, aligned: bool 
     are not 16-byte aligned (``w % 8``, or ``aligned`` False: the tensor is off 16 bytes),
     gathers directly; a tile with no tap inside stages nothing.
     """
-    xmin, xmax, ymin, ymax, empty = _tile_footprints(flow, h, w, stride, STAGED_TILE)
+    xmin, xmax, ymin, ymax, empty = _tile_footprints(flow, h, w, stride, STAGED_TILE, row0)
     x0 = torch.where(empty, 0.0, torch.floor(xmin / 8) * 8)
     chunks = torch.where(empty, 0.0, (torch.div(xmax - x0, 8, rounding_mode="floor") + 1) * (ymax - ymin + 1))
     if w % 8 or not aligned:
@@ -325,23 +331,29 @@ def direct_tile_counter(device: torch.device) -> torch.Tensor:
     return kernels.device_counter("backwarp_bf16 direct tiles", device)
 
 
+def _forward(img: torch.Tensor, flow: torch.Tensor, stride: int, row0: int = 0) -> torch.Tensor:
+    """The kernel's output for CUDA operands, counted in :data:`launches` or :data:`bf16_launches`."""
+    global launches, bf16_launches
+    b, c = img.shape[:2]
+    out = torch.empty((b, c, *flow.shape[2:]), device=img.device, dtype=img.dtype)
+    if out.numel():
+        # row0 is passed only where it is not 0: the unsharded calls keep _launch's four arguments
+        _launch(img, flow, stride, out, *((row0,) if row0 else ()))
+        if img.dtype == torch.bfloat16:
+            bf16_launches += 1
+        else:
+            launches += 1
+    return out
+
+
 class _Backwarp(torch.autograd.Function):
     """The kernel path: ``csrc/backwarp.cu`` forward, ``csrc/backwarp_bwd.cu`` backward."""
 
     @staticmethod
     def forward(ctx, img, flow, stride):
-        global launches, bf16_launches
-        b, c = img.shape[:2]
-        out = torch.empty((b, c, *flow.shape[2:]), device=img.device, dtype=img.dtype)
         ctx.stride = stride
         ctx.save_for_backward(img, flow)
-        if out.numel():
-            _launch(img, flow, stride, out)
-            if img.dtype == torch.bfloat16:
-                bf16_launches += 1
-            else:
-                launches += 1
-        return out
+        return _forward(img, flow, stride)
 
     @staticmethod
     def backward(ctx, gout):
@@ -360,32 +372,41 @@ class _Backwarp(torch.autograd.Function):
         return g_img, g_flow, None
 
 
-def backwarp(img: torch.Tensor, flow: torch.Tensor, stride: int = 1) -> torch.Tensor:
+def backwarp(img: torch.Tensor, flow: torch.Tensor, stride: int = 1, row0: int = 0) -> torch.Tensor:
     """Backwarp ``img`` by ``flow`` on the stride-``stride`` grid; kernel on CUDA, plain version on the CPU.
 
-    Both float32 or both bfloat16; the result has their dtype. Differentiable in ``img`` and
-    ``flow`` on both paths, in their dtype.
+    Both float32 or both bfloat16; the result has their dtype. ``flow [B,2,h,ceil(W/s)]``: the
+    whole grid (``h = ceil(H/s)``, ``row0 = 0``), or a slab's rows, starting at the image's row
+    ``row0`` (the module docstring). Differentiable in ``img`` and ``flow`` on both paths, in
+    their dtype, where ``row0`` is 0; the backward kernel has no row offset, so on CUDA a call
+    with ``row0`` raises where a gradient is wanted.
     """
     if img.dim() != 4 or flow.dim() != 4:
         raise ValueError("backwarp: img and flow must be [B,C,H,W] and [B,2,h,w]")
     b, c, h, w = img.shape
-    ho, wo = out_hw(h, w, stride)
-    if stride not in (1, 2) or tuple(flow.shape) != (b, 2, ho, wo):
+    wo = out_hw(h, w, stride)[1]
+    if (stride not in (1, 2) or tuple(flow.shape[:2]) != (b, 2) or flow.shape[3] != wo
+            or int(row0) != row0 or row0 < 0):
         raise ValueError(f"backwarp: flow {tuple(flow.shape)} does not fit img "
-                         f"{tuple(img.shape)} at stride {stride} (stride 1 or 2)")
+                         f"{tuple(img.shape)} at stride {stride} (stride 1 or 2) and row {row0}")
     if not kernels.on_cuda("backwarp", img, flow):
-        return backwarp_plain(img, flow, stride)
-    return _Backwarp.apply(img, flow, stride)
+        return backwarp_plain(img, flow, stride, int(row0))
+    if not row0:
+        return _Backwarp.apply(img, flow, stride)
+    if torch.is_grad_enabled() and (img.requires_grad or flow.requires_grad):
+        raise NotImplementedError("backwarp: a slab with row0 > 0 is forward only on CUDA "
+                                  "(the backward kernel takes no row offset)")
+    return _forward(img, flow, stride, int(row0))
 
 
-def _launch(img: torch.Tensor, flow: torch.Tensor, stride: int, out: torch.Tensor) -> None:
+def _launch(img: torch.Tensor, flow: torch.Tensor, stride: int, out: torch.Tensor, row0: int = 0) -> None:
     """The kernel call itself (a test can substitute a fake); the bf16 form also adds its tiles
     that gathered directly to :func:`direct_tile_counter`."""
     b, c, h, w = img.shape
     counter = (direct_tile_counter(img.device).data_ptr(),) if img.dtype == torch.bfloat16 else ()
     kernels.launch(kernels.entry("backwarp", img.dtype), "backwarp", img.device,
                    img.data_ptr(), flow.data_ptr(), out.data_ptr(), *counter,
-                   b, c, h, w, out.shape[2], out.shape[3], stride)
+                   b, c, h, w, out.shape[2], out.shape[3], stride, row0)
 
 
 def _launch_bwd(img: torch.Tensor, flow: torch.Tensor, gout: torch.Tensor, stride: int,

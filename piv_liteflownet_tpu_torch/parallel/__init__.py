@@ -1,1 +1,2 @@
-"""The training step (one device; several cards are queued in ROADMAP.md)."""
+"""The training step, and running over several devices: the mesh (one process a device), the
+data-parallel steps and the H-sharded (spatial) forward."""

@@ -8,9 +8,15 @@ The JAX package's ``run.py`` flags: ``-m/--model``, ``-v/--version``,
 the fast path; the ``.flo`` files stay float32), ``--native_io`` (libpivio's
 C loader where its decoders apply), ``--conv_impl {cudnn,chain}`` (the NetE
 conv stacks through cuDNN or the ``conv_chain`` kernel) and ``--cpu``. It runs
-on the CUDA card unless ``--cpu`` is given. ``--num_devices`` and
-``--spatial`` above 1 raise ``NotImplementedError`` (multi-GPU, ROADMAP.md
-Queue 1 item 5). The TPU's implementation selectors ``--warp_impl``,
+on the CUDA card unless ``--cpu`` is given. Over several ranks, one process a
+device (``parallel/mesh.py:spawn``; the count is clamped to the devices present
+and printed), each running :func:`run_rank`: ``--num_devices N`` takes
+``batch_size x N`` pairs a step, each rank decoding its own ``batch_size`` of
+them and writing their ``.flo`` files; ``--spatial N`` splits each frame's
+height over the ranks (``estimate(spatial_mesh=...)``), every rank decoding
+the whole batch and rank 0 writing. The two are mutually exclusive. The
+brightness/contrast path runs on rank 0 alone, as JAX's runs on one device.
+The TPU's implementation selectors ``--warp_impl``,
 ``--corr_impl`` and ``--conv_bands`` have no counterpart: the port has one
 exact gather and one cost-volume kernel.
 
@@ -32,11 +38,16 @@ with an ``args.txt`` dump beside ``flow/``.
 from __future__ import annotations
 
 import argparse
+import contextlib
+import copy
+import io
 import os
+import sys
 import time
 from collections import deque
 from dataclasses import dataclass
 from glob import glob
+from typing import Optional
 
 import numpy as np
 import torch
@@ -44,6 +55,7 @@ import torch
 from piv_liteflownet_tpu_torch.inference import Inference, estimate
 from piv_liteflownet_tpu_torch.models.convert import from_jax_params
 from piv_liteflownet_tpu_torch.models.factory import config, hui_liteflownet, piv_liteflownet
+from piv_liteflownet_tpu_torch.parallel.mesh import Mesh, devices_to_use, spawn
 from piv_liteflownet_tpu_torch.utils.flow_io import flowname_modifier, write_flow
 
 NETNAMES = {"hui": "Hui-LiteFlowNet", "piv": "PIV-LiteFlowNet-en"}
@@ -73,7 +85,7 @@ def build_parser() -> argparse.ArgumentParser:
     parser.add_argument("--batch_size", type=int, default=2, help="Image pairs per forward.")
     parser.add_argument("--cpu", action="store_true", help="Run on the CPU instead of the card.")
     parser.add_argument("--num_devices", "-d", type=int, default=1,
-                        help="Cards to shard each batch over (above 1: not ported yet).")
+                        help="Ranks (one a card) to split each step's pairs over.")
     parser.add_argument("--bf16", action="store_true",
                         help="Run params and activations in bfloat16 (the fast path); .flo files stay float32.")
     parser.add_argument("--conv_impl", choices=["cudnn", "chain"], default="cudnn",
@@ -82,7 +94,7 @@ def build_parser() -> argparse.ArgumentParser:
                         help="Decode with libpivio's C threads (PNM/PNG/TIFF pairs, .pivseq); other "
                              "formats take the Python loader. Raises if the library cannot be built.")
     parser.add_argument("--spatial", type=int, default=1,
-                        help="Cards to shard each frame's height over (above 1: not ported yet).")
+                        help="Ranks (one a card) to split each frame's height over.")
     return parser
 
 
@@ -128,9 +140,25 @@ class RunStats:
     loader: str = "python"
 
 
+def rank_pairs(ds, batch_size: int, mesh: Mesh):
+    """The pairs of ``ds`` (a ``Run`` or ``PivseqRun``) that ``mesh``'s rank takes: its
+    ``batch_size`` of each step's ``batch_size x N``, in order, as a dataset of the same kind."""
+    keep = [i for i in range(len(ds)) if (i // batch_size) % mesh.size == mesh.rank]
+    sub = copy.copy(ds)
+    sub.pairs = [ds.pairs[i] for i in keep]
+    if hasattr(ds, "index_pairs"):
+        sub.index_pairs = [ds.index_pairs[i] for i in keep]
+    return sub
+
+
 def main_dl(model, inputdir: str, savedir: str, is_pair: bool = False, start_id: int = 0,
-            num_images: int = -1, batch_size: int = 1, native_io: bool = False) -> RunStats:
-    """Write one ``.flo`` per frame pair of ``inputdir`` (a directory or a ``.pivseq`` file)."""
+            num_images: int = -1, batch_size: int = 1, native_io: bool = False,
+            mesh: Optional[Mesh] = None) -> RunStats:
+    """Write one ``.flo`` per frame pair of ``inputdir`` (a directory or a ``.pivseq`` file).
+
+    ``mesh``: a ``data`` mesh (this rank's pairs, :func:`rank_pairs`; ``pairs`` counts them)
+    or a ``spatial`` one (every pair through ``estimate(spatial_mesh=...)``, rank 0 writing).
+    """
     from piv_liteflownet_tpu_torch.data.datasets import Run
     from piv_liteflownet_tpu_torch.data.loader import BatchLoader, PrefetchLoader, native_loader_for
     from piv_liteflownet_tpu_torch.data.pivseq import PivseqRun
@@ -139,8 +167,12 @@ def main_dl(model, inputdir: str, savedir: str, is_pair: bool = False, start_id:
     os.makedirs(savedir, exist_ok=True)
     dataset = PivseqRun if inputdir.endswith(".pivseq") else Run
     ds = dataset(inputdir, is_pair=is_pair, n_images=num_images, start_at=start_id)
-    stats = RunStats(pairs=len(ds))
     print(f"Processing {len(ds)} pairs of images...", flush=True)
+    spatial_mesh = mesh if mesh is not None and mesh.axis == "spatial" else None
+    if mesh is not None and mesh.axis == "data":
+        ds = rank_pairs(ds, batch_size, mesh)
+    write = spatial_mesh is None or spatial_mesh.rank == 0
+    stats = RunStats(pairs=len(ds))
     loader = None
     if native_io:
         loader = native_loader_for(ds, batch_size)
@@ -159,13 +191,13 @@ def main_dl(model, inputdir: str, savedir: str, is_pair: bool = False, start_id:
         if copied is not None:
             copied.synchronize()
         flows = flows.numpy()
-        for i, name in enumerate(names):
+        for i, name in enumerate(names if write else ()):
             write_flow(flows[i], flowname_modifier(name, savedir, pair=False))
 
     inflight: deque = deque()  # two batches in flight: launches overlap the drain and the writes
     try:
         for (im1, im2), names in PrefetchLoader(loader, device, fence=getattr(loader, "fence", None)):
-            flows = estimate(model, im1, im2, tensor=True).float()
+            flows = estimate(model, im1, im2, tensor=True, spatial_mesh=spatial_mesh).float()
             if cuda:
                 host = torch.empty(flows.shape, dtype=torch.float32, pin_memory=True)
                 host.copy_(flows, non_blocking=True)
@@ -237,15 +269,34 @@ def output_dirs(args, imdir: str) -> tuple[str, str, str]:
 
 def main(argv=None) -> list:
     """Parse ``argv`` and run every input; returns each input's ``RunStats`` (directory path)
-    or list of files written (brightness/contrast path)."""
+    or list of files written (brightness/contrast path); over several ranks, rank 0's."""
+    argv = list(sys.argv[1:] if argv is None else argv)
     args = build_parser().parse_args(argv)
-    for flag in ("num_devices", "spatial"):
-        if getattr(args, flag) > 1:
-            raise NotImplementedError(f"--{flag} > 1: multi-GPU inference is not ported yet; "
-                                      "see ROADMAP.md Queue 1 item 5")
+    if args.num_devices > 1 and args.spatial > 1:
+        raise ValueError("--spatial and --num_devices are mutually exclusive")
+    if max(args.num_devices, args.spatial) > 1:
+        axis = "spatial" if args.spatial > 1 else "data"
+        n = devices_to_use(max(args.num_devices, args.spatial), args.cpu,
+                           "spatial inference" if axis == "spatial" else "data-parallel inference")
+        if n > 1:
+            return spawn(run_rank, n, argv, axes=(axis,), devices=["cpu"] * n if args.cpu else None)[0]
+    return run(args)
+
+
+def run_rank(mesh: Mesh, argv) -> list:
+    """One rank of ``run`` over ``mesh`` (``data``: ``--num_devices``, or ``spatial``: ``--spatial``);
+    ranks other than 0 print nothing. Returns what :func:`run` returns on this rank."""
+    args = build_parser().parse_args(list(argv))
+    with contextlib.nullcontext() if mesh.rank == 0 else contextlib.redirect_stdout(io.StringIO()):
+        return run(args, mesh)
+
+
+def run(args, mesh: Optional[Mesh] = None) -> list:
+    """Run every input of the parsed ``args``, in this process or as ``mesh``'s rank."""
     cfg = config(args.model, args.version)
     factory = hui_liteflownet if args.model == "hui" else piv_liteflownet
-    device = "cpu" if args.cpu else None
+    device = mesh.device if mesh is not None else ("cpu" if args.cpu else None)
+    rank0 = mesh is None or mesh.rank == 0
     weights, args.netname = load_weights(args, cfg)
     if weights is None:
         print("WARNING: no weight file found or given; using a seeded random init", flush=True)
@@ -258,13 +309,16 @@ def main(argv=None) -> list:
     for imdir in args.input:
         savedir, flodir, argsname = output_dirs(args, imdir)
         os.makedirs(savedir, exist_ok=True)
-        with open(os.path.join(savedir, argsname), "w") as f:
-            for argument, value in sorted(vars(args).items()):
-                f.write(f"{argument}: {value}\n")
+        if rank0:
+            with open(os.path.join(savedir, argsname), "w") as f:
+                for argument, value in sorted(vars(args).items()):
+                    f.write(f"{argument}: {value}\n")
         if args.brightness is None and args.contrast is None:
             results.append(main_dl(model, imdir, flodir, is_pair=args.is_pair, start_id=args.start,
                                    num_images=args.num_images, batch_size=args.batch_size,
-                                   native_io=args.native_io))
+                                   native_io=args.native_io, mesh=mesh))
+        elif not rank0:
+            results.append([])
         else:
             brightness = (1.0,) if args.brightness is None else tuple(args.brightness)
             contrast = (1.0,) if args.contrast is None else tuple(args.contrast)

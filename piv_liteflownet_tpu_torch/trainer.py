@@ -1,7 +1,6 @@
 """The trainer: its command line, the epoch loop, checkpoints and the lr schedule.
 
-Port of the top-level ``trainer.py`` (the JAX package's CLI) for one device:
-``build_parser`` has its flags, including the groups reflected from
+Port of the top-level ``trainer.py`` (the JAX package's CLI): ``build_parser`` has its flags, including the groups reflected from
 signatures (``--model_*``, ``--loss_*``, ``--optimizer_*``,
 ``--lr_scheduler_*``, ``--training_dataset_*``, ``--validation_dataset_*``,
 ``--logger_*``), and ``main`` builds the model, the datasets and loaders,
@@ -18,8 +17,17 @@ training triplets with libpivio's C threads (``data/native.py``) where its
 decoders take the dataset's formats, and raises if the library cannot be
 built. ``--optimizer`` takes every name of the JAX registry: ``torch.optim``'s
 and the port's own Lion, Lamb, Yogi and Novograd (``training/optim.py``).
-``--number_devices`` above 1 raises ``NotImplementedError`` (multi-GPU,
-ROADMAP.md).
+
+``--number_devices N`` trains data-parallel over N ranks, one process a device
+(``parallel/mesh.py:spawn``; -1: every CUDA device, or one rank with
+``--cpu``; N is clamped to the devices present and printed). Each rank runs
+:func:`train_rank`. ``--batch_size`` is the global batch, as in JAX: rank r's
+loaders yield rows ``[r B/N, (r+1) B/N)`` of each batch one loader would form
+(the same shuffle and epochs) and decode only those, and its step averages the
+gradients over the ranks (``parallel/train_step.py``). A batch that does not
+split over the ranks raises ``ValueError``, as JAX's sharded ``device_put``
+does. Checkpoints, ``args.txt``, the experiment's ``metrics.jsonl`` and the
+printing come from rank 0 only; ``--resume`` loads on every rank.
 
 ``Train`` takes a dict of loaders keyed ``"train"`` and ``"val"``; each is
 a sized iterable of numpy batches ``((im1, im2), target)`` with ``im
@@ -45,13 +53,17 @@ JAX trainer's does.
 from __future__ import annotations
 
 import argparse
+import contextlib
 import dataclasses
+import io
 import os
+import sys
 from typing import Any, Callable, Dict, Optional
 
 import torch
 
 from piv_liteflownet_tpu_torch.data.loader import PrefetchLoader
+from piv_liteflownet_tpu_torch.parallel.mesh import Mesh, devices_to_use, spawn
 from piv_liteflownet_tpu_torch.parallel.train_step import TrainState
 from piv_liteflownet_tpu_torch.training.optim import schedule_lr, set_group_lrs
 from piv_liteflownet_tpu_torch.utils.checkpoint import restore_checkpoint, save_checkpoint
@@ -120,11 +132,36 @@ def _center_crop64(im1, im2, target):
     return tuple(a[:, t0:t0 + h, l0:l0 + w] for a in (im1, im2, target))
 
 
+class NoLogger:
+    """The logger of the ranks other than 0: it records and writes nothing."""
+
+    dir = None
+
+    def set_name(self, name: str) -> None:
+        pass
+
+    def get_key(self) -> str:
+        return ""
+
+    def log_parameters(self, params) -> None:
+        pass
+
+    def log_current_epoch(self, epoch: int) -> None:
+        pass
+
+    def log_metric(self, *args, **kwargs) -> None:
+        pass
+
+    def close(self) -> None:
+        pass
+
+
 class Train:
-    """Epoch loop: train, periodic validation, best and backup checkpoints."""
+    """Epoch loop: train, periodic validation, best and backup checkpoints (written by rank 0
+    of a mesh only; ``written`` lists the files this process wrote)."""
 
     def __init__(self, args: TrainArgs, logger, loaders: Dict[str, Any], state: TrainState,
-                 train_step: Callable, eval_step: Callable):
+                 train_step: Callable, eval_step: Callable, rank: int = 0):
         want = torch.bfloat16 if args.bf16 else torch.float32
         got = getattr(train_step, "compute_dtype", None)
         if got != want:
@@ -137,6 +174,8 @@ class Train:
         self.train_step = train_step
         self.eval_step = eval_step
         self.loss_label = "MultiScale-" + args.loss_norm
+        self.rank = rank
+        self.written: list = []
 
     def _epoch(self, key_name: str, epoch: int) -> float:
         loader = self.loaders[key_name]
@@ -198,15 +237,19 @@ class Train:
         return total / max(n, 1)
 
     def save_model(self, epoch: int, best_err: float, is_best: bool,
-                   filename: Optional[str] = None) -> str:
+                   filename: Optional[str] = None) -> Optional[str]:
+        if self.rank != 0:
+            return None
         state = {"model": self.state.model.state_dict(),
                  "optimizer": self.state.optimizer.state_dict(),
                  "epoch": int(epoch), "best_epe": float(best_err), "step": int(self.state.step)}
         meta = {"arch": self.args.model, "opt": self.args.optimizer,
                 "exp_key": self.experiment.get_key(), "epoch": int(epoch),
                 "best_EPE": float(best_err)}
-        return save_checkpoint(state, is_best, self.args.save, self.args.model,
+        path = save_checkpoint(state, is_best, self.args.save, self.args.model,
                                filename=filename, metadata=meta)
+        self.written.append(path)
+        return path
 
     def __call__(self) -> None:
         args = self.args
@@ -261,7 +304,8 @@ def build_parser() -> argparse.ArgumentParser:
     parser.add_argument("--bf16", action="store_true",
                         help="bf16 compute with float32 master params, loss and optimizer")
     parser.add_argument("--number_devices", "-nd", type=int, default=-1,
-                        help="number of CUDA cards to use (-1: one; more are not ported yet)")
+                        help="ranks to train data-parallel over, one a CUDA card (-1: every card; "
+                             "one rank with --cpu)")
     parser.add_argument("--cpu", action="store_true", help="run on the CPU")
     parser.add_argument("--seed", type=int, default=1)
     parser.add_argument("--name", default="run", type=str)
@@ -303,8 +347,34 @@ def build_parser() -> argparse.ArgumentParser:
     return parser
 
 
-def main(argv=None) -> Train:
-    """Parse ``argv``, build everything and train; returns the finished ``Train``."""
+def main(argv=None):
+    """Parse ``argv``, build everything and train. In one process returns the finished
+    ``Train``; over several ranks (``--number_devices``) spawns them and returns each rank's
+    :func:`train_rank` summary, in rank order."""
+    argv = list(sys.argv[1:] if argv is None else argv)
+    parser = build_parser()
+    args = parser.parse_args(argv)
+    n = devices_to_use(args.number_devices, args.cpu, "training")
+    if n > 1:
+        return spawn(train_rank, n, argv, devices=["cpu"] * n if args.cpu else None)
+    return train(parser, args)
+
+
+def train_rank(mesh: Mesh, argv) -> dict:
+    """One rank of a data-parallel run of ``argv`` (the CLI's arguments) over ``mesh``: trains and
+    returns ``{"rank", "written", "best_err", "step", "experiment_dir"}``. Ranks other than 0
+    print nothing. ``chip_smoke.py`` spawns it with gloo, two ranks on one card."""
+    parser = build_parser()
+    args = parser.parse_args(list(argv))
+    with contextlib.nullcontext() if mesh.rank == 0 else contextlib.redirect_stdout(io.StringIO()):
+        trainer = train(parser, args, mesh)
+    return {"rank": mesh.rank, "written": trainer.written, "best_err": trainer.args.best_err,
+            "step": trainer.state.step, "experiment_dir": trainer.experiment.dir}
+
+
+def train(parser: argparse.ArgumentParser, args, mesh: Optional[Mesh] = None) -> Train:
+    """Build the model, data, optimizer, loss and steps of the parsed ``args`` and train, on the
+    device of ``mesh``'s rank (data-parallel) or of ``--cpu``; returns the finished ``Train``."""
     from piv_liteflownet_tpu_torch.data.datasets import get_transform
     from piv_liteflownet_tpu_torch.data.loader import BatchLoader, native_train_loader_for
     from piv_liteflownet_tpu_torch.models.convert import load_param_only
@@ -316,11 +386,8 @@ def main(argv=None) -> Train:
     from piv_liteflownet_tpu_torch.utils.checkpoint import load_params_npz
     from piv_liteflownet_tpu_torch.utils.timer import TimerBlock, log_arguments, set_proc_title
 
-    parser = build_parser()
-    args = parser.parse_args(argv)
-    if args.number_devices > 1:
-        raise NotImplementedError("--number_devices > 1: multi-GPU training is not ported yet; see ROADMAP.md")
-    device = resolve_device("cpu" if args.cpu else None)
+    device = mesh.device if mesh is not None else resolve_device("cpu" if args.cpu else None)
+    rank, ranks = (mesh.rank, mesh.size) if mesh is not None else (0, 1)
 
     log_args = {k: v for k, v in sorted(vars(args).items()) if "logger" not in k}
     set_proc_title(f"piv_liteflownet_tpu_torch.trainer {args.name}")
@@ -347,17 +414,17 @@ def main(argv=None) -> Train:
         if args.native_io:
             train_loader = native_train_loader_for(train_ds, batch_size=args.batch_size,
                                                    num_workers=args.number_workers, shuffle=True,
-                                                   seed=args.seed, drop_last=True)
+                                                   seed=args.seed, drop_last=True, rank=rank, ranks=ranks)
             block.log("native ingest: " + ("libpivio's C loader" if train_loader else
                                            "not for this dataset's formats; the Python loader"))
         if train_loader is None:
             train_loader = BatchLoader(train_ds, batch_size=args.batch_size, num_workers=args.number_workers,
-                                       shuffle=True, seed=args.seed, drop_last=True)
+                                       shuffle=True, seed=args.seed, drop_last=True, rank=rank, ranks=ranks)
         loaders = {"train": train_loader}
         try:
             val_ds = cfgutil.instance_from_args(parser, args, "validation_dataset")
             loaders["val"] = BatchLoader(val_ds, batch_size=args.batch_size,
-                                         num_workers=args.number_workers)
+                                         num_workers=args.number_workers, rank=rank, ranks=ranks)
         except FileNotFoundError:
             block.log("No validation dataset found: training without validation")
         block.log(f"train={len(train_ds)} samples")
@@ -370,14 +437,15 @@ def main(argv=None) -> Train:
                                    **opt_kwargs)
         loss_obj = cfgutil.instance_from_args(parser, args, "loss")
         pipeline = get_transform(crop_size=tuple(args.crop_size), mode="train")
-        train_step = make_train_step(cfg, loss_obj, optimizer, pipeline=pipeline,
+        train_step = make_train_step(cfg, loss_obj, optimizer, mesh=mesh, pipeline=pipeline,
                                      compute_dtype=torch.bfloat16 if args.bf16 else None)
-        eval_step = make_eval_step(cfg, loss_obj)
+        eval_step = make_eval_step(cfg, loss_obj, mesh=mesh)
         state = TrainState(model, optimizer)
-        block.log(f"{args.optimizer}, {type(loss_obj).__name__}, {'bf16' if args.bf16 else 'float32'} steps")
+        block.log(f"{args.optimizer}, {type(loss_obj).__name__}, {'bf16' if args.bf16 else 'float32'} steps"
+                  + (f", data-parallel over {ranks} ranks ({mesh.backend})" if mesh is not None else ""))
 
     with TimerBlock("Initializing logger") as block:
-        logger = cfgutil.instance_from_args(parser, args, "logger")
+        logger = cfgutil.instance_from_args(parser, args, "logger") if rank == 0 else NoLogger()
         logger.set_name(args.name)
         logger.log_parameters(log_args)
         targs = TrainArgs(
@@ -391,12 +459,13 @@ def main(argv=None) -> Train:
             resume(state, args.resume, targs)
             block.log(f"Resumed from {args.resume} at epoch {targs.start_epoch}")
         args.start_epoch, args.best_err = targs.start_epoch, targs.best_err
-        os.makedirs(args.save, exist_ok=True)
-        with open(os.path.join(args.save, "args.txt"), "w") as f:
-            for k, v in sorted(vars(args).items()):
-                f.write(f"{k}: {v}\n")
+        if rank == 0:
+            os.makedirs(args.save, exist_ok=True)
+            with open(os.path.join(args.save, "args.txt"), "w") as f:
+                for k, v in sorted(vars(args).items()):
+                    f.write(f"{k}: {v}\n")
 
-    trainer = Train(targs, logger, loaders, state, train_step, eval_step)
+    trainer = Train(targs, logger, loaders, state, train_step, eval_step, rank=rank)
     try:
         trainer()
     finally:

@@ -337,7 +337,8 @@ def test_bf16_estimate_launches_only_bf16_forms(monkeypatch, version, counts):
 
 def test_bf16_launch_arguments(monkeypatch):
     """Each op's ``_launch`` calls the ``_bf16`` entry point with the arguments of the f32 form (the
-    backwarp's with its counter of tiles that gathered directly after its output)."""
+    backwarp's with its counter of tiles that gathered directly after its output; its last, the
+    output grid's first row in the image, is 0 off a slab)."""
     calls = []
     monkeypatch.setattr(kernels, "launch", lambda *a: calls.append(a))
     for dtype in (torch.float32, BF16):
@@ -358,7 +359,7 @@ def test_bf16_launch_arguments(monkeypatch):
     assert corr_args[:4] == (f1.data_ptr(), f2.data_ptr(), out.data_ptr(), counter.data_ptr())
     assert corr_args[4:] == (2, 3, 5, 8)
     assert warp_args == (img.data_ptr(), flow.data_ptr(), wout.data_ptr(),
-                         warp.direct_tile_counter(torch.device("cpu")).data_ptr(), 2, 3, 9, 8, 5, 4, 2)
+                         warp.direct_tile_counter(torch.device("cpu")).data_ptr(), 2, 3, 9, 8, 5, 4, 2, 0)
     assert f32_calls[1][6:] == warp_args[4:]  # the f32 form: no counter
     assert rgb_args == (i1.data_ptr(), i1.data_ptr(), fl.data_ptr(), nout.data_ptr(), 1, 6, 7)
     # the same shapes of arguments as the float32 forms, which the C signatures share

@@ -239,8 +239,11 @@ def test_run_raises_on_a_bad_frame_through_either_loader(tmp_path, fault, native
 
 @pytest.mark.parametrize("flag", ["--num_devices", "--spatial"])
 def test_run_multi_gpu_flags_raise(tmp_path, flag):
-    with pytest.raises(NotImplementedError, match="ROADMAP.md Queue 1 item 5"):
-        port_run.main(["-m", "piv", "-i", str(tmp_path), "--cpu", flag, "2"])
+    """Both flags are ported (tests/test_torch_parallel.py, tests/test_torch_spatial.py); together
+    they raise, as JAX's run.py asserts."""
+    other = "--spatial" if flag == "--num_devices" else "--num_devices"
+    with pytest.raises(ValueError, match="mutually exclusive"):
+        port_run.main(["-m", "piv", "-i", str(tmp_path), "--cpu", flag, "2", other, "2"])
 
 
 def test_run_conv_impl_chain_writes_the_cudnn_flows(tmp_path):

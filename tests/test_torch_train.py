@@ -335,11 +335,13 @@ def test_set_group_lrs_and_unported_optimizers():
         assert ("eps" in opt.defaults) == (name != "lion")
     with pytest.raises(ValueError, match="unknown optimizer"):
         toptim.make_optimizer(model, 2, optimizer="Sgdx")
-    # make_train_step(pipeline=...) and (remat=True) are ported (tests/test_torch_trainer_cli.py,
-    # test_remat_*)
-    for option in ({"mesh": object()}, {"compute_dtype": torch.float16}):
-        with pytest.raises(NotImplementedError, match="ROADMAP.md"):
-            make_train_step(model.cfg, tloss.hui_loss(), opt, **option)
+    # make_train_step(pipeline=...), (remat=True) and (mesh=...) are ported
+    # (tests/test_torch_trainer_cli.py, test_remat_*, tests/test_torch_parallel.py); a mesh must
+    # be the port's parallel.mesh.Mesh
+    with pytest.raises(NotImplementedError, match="ROADMAP.md"):
+        make_train_step(model.cfg, tloss.hui_loss(), opt, compute_dtype=torch.float16)
+    with pytest.raises(TypeError, match="Mesh"):
+        make_train_step(model.cfg, tloss.hui_loss(), opt, mesh=object())
 
 
 # -- the kernel path without a card: autograd through faked launches -------------------------

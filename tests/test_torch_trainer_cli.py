@@ -167,9 +167,11 @@ def test_main_loads_pretrained_weights(dataset, tmp_path):
     assert to_jax_params(PIV_V1, want).keys() == set(np.load(str(tmp_path / "w.npz")).files)
 
 
-@pytest.mark.parametrize("flags", [["--number_devices", "2"]])
+@pytest.mark.parametrize("flags", [["--number_devices", "2", "--batch_size", "3", "--total_epochs", "1"]])
 def test_main_raises_for_what_is_not_ported(dataset, tmp_path, flags):
-    with pytest.raises(NotImplementedError, match="ROADMAP.md"):
+    """Data-parallel training is ported (tests/test_torch_parallel.py); what raises is a batch
+    that does not split over the ranks (3 over 2 here), as JAX's sharded device_put does."""
+    with pytest.raises(RuntimeError, match="does not split over 2 ranks"):
         main(_argv(dataset, tmp_path, "--total_epochs", "0", *flags))
 
 
