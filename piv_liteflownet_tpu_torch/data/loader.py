@@ -24,6 +24,8 @@ from typing import Callable, Iterable, Iterator, Optional
 import numpy as np
 import torch
 
+from piv_liteflownet_tpu_torch.utils.profiling import LOADER_STAGE, LOADER_WAIT, span
+
 
 #: formats the C++ decoders handle (PNG 8/16-bit colour types 0/2/3/4/6 not interlaced,
 #: baseline TIFF uncompressed or PackBits, PNM); a dataset with any other goes to the
@@ -247,15 +249,16 @@ class PrefetchLoader:
             try:
                 for batch in self.inner:
                     pinned: list = []
-                    if cuda:
-                        with torch.cuda.stream(stream):
-                            out = _map(lambda x: move(x, pinned), batch)
-                            done = torch.cuda.Event()
-                            done.record(stream)
-                        if self.fence is not None:
-                            self.fence(done)
-                    else:
-                        out, done = _map(lambda x: move(x, pinned), batch), None
+                    with span(LOADER_STAGE):
+                        if cuda:
+                            with torch.cuda.stream(stream):
+                                out = _map(lambda x: move(x, pinned), batch)
+                                done = torch.cuda.Event()
+                                done.record(stream)
+                            if self.fence is not None:
+                                self.fence(done)
+                        else:
+                            out, done = _map(lambda x: move(x, pinned), batch), None
                     if not put((out, done, pinned)):
                         return
             except Exception as e:  # raised again in the consumer
@@ -267,15 +270,16 @@ class PrefetchLoader:
         thread.start()
         try:
             while True:
-                item = q.get()
-                if item is sentinel:
-                    break
-                out, done, _pinned = item
-                if cuda:
-                    current = torch.cuda.current_stream(self.device)
-                    current.wait_event(done)
-                    _map(lambda t: t.record_stream(current) if isinstance(t, torch.Tensor) and t.is_cuda
-                         else None, out)
+                with span(LOADER_WAIT):
+                    item = q.get()
+                    if item is sentinel:
+                        break
+                    out, done, _pinned = item
+                    if cuda:
+                        current = torch.cuda.current_stream(self.device)
+                        current.wait_event(done)
+                        _map(lambda t: t.record_stream(current) if isinstance(t, torch.Tensor) and t.is_cuda
+                             else None, out)
                 yield out
         finally:
             stop.set()

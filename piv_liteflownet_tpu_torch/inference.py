@@ -28,6 +28,7 @@ from piv_liteflownet_tpu_torch.ops.nn import device_constant, f32_convs
 from piv_liteflownet_tpu_torch.ops.resize import resize_bilinear
 from piv_liteflownet_tpu_torch.parallel.mesh import Mesh, gather_rows, split_rows
 from piv_liteflownet_tpu_torch.utils.flow_io import flowname_modifier, image_files_from_folder, write_flow
+from piv_liteflownet_tpu_torch.utils.profiling import ESTIMATE, ESTIMATE_IN, ESTIMATE_OUT, span
 
 
 def adaptive_size(h: int, w: int, mult: int = 32) -> Tuple[int, int]:
@@ -72,44 +73,50 @@ def estimate(model: LiteFlowNet, img1, img2, tensor: bool = False, ops: Ops = KE
     (``parallel/spatial.py:spatial_estimate``) and the flow is gathered before the resize
     back. The two are mutually exclusive; every rank of the mesh calls with the same frames.
     """
-    if tuple(img1.shape) != tuple(img2.shape):
-        raise ValueError(f"both frames must have the same shape, got "
-                         f"{tuple(img1.shape)} and {tuple(img2.shape)}")
-    single = len(img1.shape) == 3
-    if single:
-        img1, img2 = img1[None], img2[None]
-    if len(img1.shape) != 4 or img1.shape[-1] != 3:
-        raise ValueError(f"expected [H,W,3] or [B,H,W,3] frames, got {tuple(img1.shape)}")
-    param = next(model.parameters())
-    device, dtype = param.device, param.dtype
-    x1, x2 = to_nchw(img1, device, dtype), to_nchw(img2, device, dtype)
-    in_h, in_w = x1.shape[2], x1.shape[3]
-    n, ns = _mesh_size(mesh, "data"), _mesh_size(spatial_mesh, "spatial")
-    if mesh is not None and spatial_mesh is not None:
-        raise ValueError("mesh and spatial_mesh are mutually exclusive")
-    ah, aw = adaptive_size(in_h, in_w)
-    b = x1.shape[0]
-    if mesh is not None:
-        pad = (-b) % n
-        if pad:
-            x1, x2 = (torch.cat([x, x[-1:].expand(pad, -1, -1, -1)]) for x in (x1, x2))
-        rows = split_rows(b + pad, n, mesh.rank)
-        x1, x2 = x1[rows], x2[rows]
-    if spatial_mesh is not None:
-        from piv_liteflownet_tpu_torch.parallel.spatial import spatial_estimate
+    with span(ESTIMATE):
+        if tuple(img1.shape) != tuple(img2.shape):
+            raise ValueError(f"both frames must have the same shape, got "
+                             f"{tuple(img1.shape)} and {tuple(img2.shape)}")
+        single = len(img1.shape) == 3
+        if single:
+            img1, img2 = img1[None], img2[None]
+        if len(img1.shape) != 4 or img1.shape[-1] != 3:
+            raise ValueError(f"expected [H,W,3] or [B,H,W,3] frames, got {tuple(img1.shape)}")
+        param = next(model.parameters())
+        device, dtype = param.device, param.dtype
+        with f32_convs():
+            with span(ESTIMATE_IN):
+                x1, x2 = to_nchw(img1, device, dtype), to_nchw(img2, device, dtype)
+                in_h, in_w = x1.shape[2], x1.shape[3]
+                n, ns = _mesh_size(mesh, "data"), _mesh_size(spatial_mesh, "spatial")
+                if mesh is not None and spatial_mesh is not None:
+                    raise ValueError("mesh and spatial_mesh are mutually exclusive")
+                ah, aw = adaptive_size(in_h, in_w)
+                b = x1.shape[0]
+                if mesh is not None:
+                    pad = (-b) % n
+                    if pad:
+                        x1, x2 = (torch.cat([x, x[-1:].expand(pad, -1, -1, -1)]) for x in (x1, x2))
+                    rows = split_rows(b + pad, n, mesh.rank)
+                    x1, x2 = x1[rows], x2[rows]
+                if spatial_mesh is not None:
+                    from piv_liteflownet_tpu_torch.parallel.spatial import spatial_estimate
 
-        ah = -(-ah // (32 * ns)) * 32 * ns  # equal level-6 shards
-    with f32_convs():
-        x1, x2 = resize_bilinear(x1, ah, aw), resize_bilinear(x2, ah, aw)
-        flow = model(x1, x2, ops) if spatial_mesh is None else spatial_estimate(model, x1, x2, spatial_mesh, ops=ops)
-    flow = resize_bilinear(flow, in_h, in_w)
-    scale = device_constant((in_w / aw, in_h / ah), flow.dtype, device)
-    flow = (flow * scale.view(1, 2, 1, 1)).permute(0, 2, 3, 1)
-    if mesh is not None:
-        flow = gather_rows(mesh, flow.contiguous())[:b]
-    if tensor or not single:
-        return flow
-    return flow[0].float().cpu().numpy()
+                    ah = -(-ah // (32 * ns)) * 32 * ns  # equal level-6 shards
+                x1, x2 = resize_bilinear(x1, ah, aw), resize_bilinear(x2, ah, aw)
+            if spatial_mesh is None:
+                flow = model(x1, x2, ops)
+            else:
+                flow = spatial_estimate(model, x1, x2, spatial_mesh, ops=ops)
+        with span(ESTIMATE_OUT):
+            flow = resize_bilinear(flow, in_h, in_w)
+            scale = device_constant((in_w / aw, in_h / ah), flow.dtype, device)
+            flow = (flow * scale.view(1, 2, 1, 1)).permute(0, 2, 3, 1)
+            if mesh is not None:
+                flow = gather_rows(mesh, flow.contiguous())[:b]
+        if tensor or not single:
+            return flow
+        return flow[0].float().cpu().numpy()
 
 
 class Inference:

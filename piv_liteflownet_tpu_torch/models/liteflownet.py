@@ -51,6 +51,7 @@ from piv_liteflownet_tpu_torch.ops.nn import NEGATIVE_SLOPE, depthwise_deconv4x2
 from piv_liteflownet_tpu_torch.ops.resize import resize_bilinear
 from piv_liteflownet_tpu_torch.parallel import spatial
 from piv_liteflownet_tpu_torch.parallel.ctx import get_spatial_ctx
+from piv_liteflownet_tpu_torch.utils.profiling import MODEL, NETC, PYRAMID, level_spans, span
 
 # Per-pyramid-level constants, indexed by actual level (1..6); index 0 unused.
 KLAST = [0, 7, 7, 5, 5, 3, 3]      # last-conv kernel size of M/S, unfold size of R
@@ -405,6 +406,7 @@ class LiteFlowNet(nn.Module):
         self.NetE_M = nn.ModuleList([Matching(cfg, lv) for lv in cfg.levels])
         self.NetE_S = nn.ModuleList([Subpixel(cfg, lv) for lv in cfg.levels])
         self.NetE_R = nn.ModuleList([Regularization(cfg, lv) for lv in cfg.levels])
+        self.level_spans = {lv: level_spans(lv) for lv in cfg.levels}
 
     @torch.no_grad()
     def init_parameters(self, generator: torch.Generator) -> None:
@@ -441,38 +443,49 @@ class LiteFlowNet(nn.Module):
         so the forward's kernels launch twice per step. The gradients are the same function;
         only the memory schedule differs (JAX wraps the whole forward in ``jax.checkpoint``).
         """
-        cfg = self.cfg
-        if train and get_spatial_ctx() is not None:
-            raise ValueError("the spatial context shards the eval forward only")
-        chain = cfg.conv_impl == "chain" and not train
-        mean = device_constant(tuple(cfg.rgb_mean), img1.dtype, img1.device)
-        x1 = (img1 - mean[:3].view(1, 3, 1, 1)).contiguous()
-        x2 = (img2 - mean[3:].view(1, 3, 1, 1)).contiguous()
-        feat1 = _call(self.NetC, remat, x1)
-        feat2 = _call(self.NetC, remat, x2)
-        pyr1, pyr2 = [x1], [x2]
-        for li in range(1, 6):
-            h, w = feat1[li].shape[2], feat1[li].shape[3]
-            pyr1.append(resize_bilinear(pyr1[-1], h, w))
-            pyr2.append(resize_bilinear(pyr2[-1], h, w))
+        with span(MODEL):
+            cfg = self.cfg
+            if train and get_spatial_ctx() is not None:
+                raise ValueError("the spatial context shards the eval forward only")
+            chain = cfg.conv_impl == "chain" and not train
+            mean = device_constant(tuple(cfg.rgb_mean), img1.dtype, img1.device)
+            x1 = (img1 - mean[:3].view(1, 3, 1, 1)).contiguous()
+            x2 = (img2 - mean[3:].view(1, 3, 1, 1)).contiguous()
+            with span(NETC):
+                feat1 = _call(self.NetC, remat, x1)
+            with span(NETC):
+                feat2 = _call(self.NetC, remat, x2)
+            pyr1, pyr2 = [x1], [x2]
+            with span(PYRAMID):
+                for li in range(1, 6):
+                    h, w = feat1[li].shape[2], feat1[li].shape[3]
+                    pyr1.append(resize_bilinear(pyr1[-1], h, w))
+                    pyr2.append(resize_bilinear(pyr2[-1], h, w))
 
-        flow = None
-        train_out: List[List[torch.Tensor]] = []
-        for level in reversed(cfg.levels):
-            i = level - cfg.lowest_level  # module list index
-            li = level - 1                # feature / pyramid list index
-            if level <= 2:
-                # reference quirk: level 2 -> ext[0], level 1 -> ext[-1]
-                ext = self.NetC_ext[0 if level == 2 else cfg.n_ext - 1]
-                f1_in, f2_in = _call(ext, remat, feat1[li]), _call(ext, remat, feat2[li])
-            else:
-                f1_in, f2_in = feat1[li], feat2[li]
-            flow_m = _call(self.NetE_M[i], remat, f1_in, f2_in, flow, ops, chain)
-            flow_s = _call(self.NetE_S[i], remat, f1_in, f2_in, flow_m, ops, chain)
-            flow = _call(self.NetE_R[i], remat, pyr1[li], pyr2[li], feat1[li], flow_s, ops, chain)
-            train_out.append([flow_m, flow_s, flow])
-        if train:
-            if cfg.version == 2:
-                train_out.append([resize_bilinear(flow, img1.shape[2], img1.shape[3])])
-            return train_out
-        return flow * cfg.scale_factor(1)
+            flow = None
+            train_out: List[List[torch.Tensor]] = []
+            for level in reversed(cfg.levels):
+                i = level - cfg.lowest_level  # module list index
+                li = level - 1                # feature / pyramid list index
+                ext_span, m_span, s_span, r_span = self.level_spans[level]
+                if level <= 2:
+                    # reference quirk: level 2 -> ext[0], level 1 -> ext[-1]
+                    ext = self.NetC_ext[0 if level == 2 else cfg.n_ext - 1]
+                    with span(ext_span):
+                        f1_in = _call(ext, remat, feat1[li])
+                    with span(ext_span):
+                        f2_in = _call(ext, remat, feat2[li])
+                else:
+                    f1_in, f2_in = feat1[li], feat2[li]
+                with span(m_span):
+                    flow_m = _call(self.NetE_M[i], remat, f1_in, f2_in, flow, ops, chain)
+                with span(s_span):
+                    flow_s = _call(self.NetE_S[i], remat, f1_in, f2_in, flow_m, ops, chain)
+                with span(r_span):
+                    flow = _call(self.NetE_R[i], remat, pyr1[li], pyr2[li], feat1[li], flow_s, ops, chain)
+                train_out.append([flow_m, flow_s, flow])
+            if train:
+                if cfg.version == 2:
+                    train_out.append([resize_bilinear(flow, img1.shape[2], img1.shape[3])])
+                return train_out
+            return flow * cfg.scale_factor(1)

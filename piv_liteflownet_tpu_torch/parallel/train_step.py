@@ -59,6 +59,8 @@ from piv_liteflownet_tpu_torch.ops.nn import f32_convs
 from piv_liteflownet_tpu_torch.ops.resize import avg_pool
 from piv_liteflownet_tpu_torch.parallel.mesh import Mesh, all_reduce, broadcast, split_rows
 from piv_liteflownet_tpu_torch.training.loss import EPE
+from piv_liteflownet_tpu_torch.utils.profiling import (STEP, STEP_ALLREDUCE, STEP_AUGMENT, STEP_BACKWARD, STEP_LOSS,
+                                                       STEP_OPTIMIZER, span)
 
 
 @dataclasses.dataclass
@@ -152,29 +154,37 @@ def make_train_step(cfg: ModelConfig, loss_obj, optimizer: torch.optim.Optimizer
                 at += p.numel()
 
     def step(state: TrainState, img1, img2, target, rng=None):
-        if state.optimizer is not optimizer:
-            raise ValueError("the state's optimizer is not the one this step was built with")
-        model = state.model
-        if model.cfg != cfg:
-            raise ValueError(f"the state's model has config {model.cfg}, the step {cfg}")
-        device = next(model.parameters()).device
-        if pipeline is not None:
-            if rng is None:
-                raise ValueError("a step with a pipeline needs rng, a seed or a torch.Generator")
-            img1, img2, target = _draws(pipeline, rng, *(_on(a, device) for a in (img1, img2, target)), mesh)
-        x1, x2, t = (to_nchw(a, device) for a in (img1, img2, target))
-        optimizer.zero_grad(set_to_none=True)
-        with f32_convs():
-            lossvalue, epevalue = loss_obj(_forward(model, x1, x2, ops, compute_dtype, remat), t)
-            lossvalue, epevalue = _summed(lossvalue), _summed(epevalue)
-            lossvalue.backward()
-        lossvalue, epevalue = lossvalue.detach(), epevalue.detach()
-        if mesh is not None:
-            grads = [p.grad for p in params if p.grad is not None]
-            lossvalue, epevalue = _global_means(mesh, x1.shape[0], [lossvalue, epevalue], grads)
-        optimizer.step()
-        state.step += 1
-        return state, {"loss": lossvalue, "epe": epevalue}
+        with span(STEP):
+            if state.optimizer is not optimizer:
+                raise ValueError("the state's optimizer is not the one this step was built with")
+            model = state.model
+            if model.cfg != cfg:
+                raise ValueError(f"the state's model has config {model.cfg}, the step {cfg}")
+            device = next(model.parameters()).device
+            with span(STEP_AUGMENT):
+                if pipeline is not None:
+                    if rng is None:
+                        raise ValueError("a step with a pipeline needs rng, a seed or a torch.Generator")
+                    img1, img2, target = _draws(pipeline, rng, *(_on(a, device) for a in (img1, img2, target)), mesh)
+                x1, x2, t = (to_nchw(a, device) for a in (img1, img2, target))
+            optimizer.zero_grad(set_to_none=True)
+            with f32_convs():
+                out = _forward(model, x1, x2, ops, compute_dtype, remat)
+                with span(STEP_LOSS):
+                    lossvalue, epevalue = loss_obj(out, t)
+                    lossvalue, epevalue = _summed(lossvalue), _summed(epevalue)
+                del out  # the outputs are not held through the backward
+                with span(STEP_BACKWARD):
+                    lossvalue.backward()
+            lossvalue, epevalue = lossvalue.detach(), epevalue.detach()
+            if mesh is not None:
+                grads = [p.grad for p in params if p.grad is not None]
+                with span(STEP_ALLREDUCE):
+                    lossvalue, epevalue = _global_means(mesh, x1.shape[0], [lossvalue, epevalue], grads)
+            with span(STEP_OPTIMIZER):
+                optimizer.step()
+            state.step += 1
+            return state, {"loss": lossvalue, "epe": epevalue}
 
     step.compute_dtype = compute_dtype or torch.float32
     return step
